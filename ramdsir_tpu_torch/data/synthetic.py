@@ -1,0 +1,84 @@
+"""Synthetic fundus data for smoke runs and tests (PyTorch port of
+`ramdsir_tpu/data/synthetic.py:20-64`).
+
+`fundus_arrays` builds the stacked arrays in memory and writes nothing;
+`make_fundus_tree` writes the PNG tree + .list manifests the fundus reader
+expects (it needs PIL, imported inside).
+"""
+from __future__ import annotations
+
+import os
+from typing import Dict, Sequence
+
+import numpy as np
+
+from ramdsir_tpu_torch.config import FUNDUS_DOMAINS
+
+
+def _fundus_pair(rng: np.random.Generator, size: int):
+    """A blobby RGB 'fundus' + gray mask (255 bg / 128 disc / 0 cup)."""
+    img = rng.integers(30, 220, (size, size, 3), dtype=np.uint8)
+    yy, xx = np.mgrid[:size, :size]
+    cy, cx = rng.integers(size // 3, 2 * size // 3, 2)
+    r_disc = size // rng.integers(4, 7)
+    r_cup = max(2, int(r_disc * rng.uniform(0.3, 0.7)))
+    d2 = (yy - cy) ** 2 + (xx - cx) ** 2
+    mask = np.full((size, size), 255, np.uint8)
+    mask[d2 < r_disc**2] = 128
+    mask[d2 < r_cup**2] = 0
+    img[d2 < r_disc**2] = (img[d2 < r_disc**2] * 0.5 + 120).astype(np.uint8)
+    return img, mask
+
+
+def fundus_arrays(
+    per_domain_train: int = 64,
+    size: int = 256,
+    seed: int = 0,
+    domains: Sequence[str] = tuple(FUNDUS_DOMAINS),
+) -> Dict[str, Dict[str, np.ndarray]]:
+    """In-memory synthetic train sets: {domain: {"images": (N, S, S, 3) u8,
+    "masks": (N, S, S) u8 gray}} with the images `make_fundus_tree` would
+    draw (not the same draws: the tree also draws test images)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for dom in domains:
+        pairs = [_fundus_pair(rng, size) for _ in range(per_domain_train)]
+        out[dom] = {
+            "images": np.stack([p[0] for p in pairs]),
+            "masks": np.stack([p[1] for p in pairs]),
+        }
+    return out
+
+
+def make_fundus_tree(
+    root: str,
+    per_domain_train: int = 6,
+    per_domain_test: int = 3,
+    size: int = 96,
+    seed: int = 0,
+    domains: Sequence[str] = tuple(FUNDUS_DOMAINS),
+) -> str:
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, "fundus")
+    for dom in domains:
+        for split, n in [("train", per_domain_train), ("test", per_domain_test)]:
+            img_dir = os.path.join(base, dom, split, "image")
+            mask_dir = os.path.join(base, dom, split, "mask")
+            os.makedirs(img_dir, exist_ok=True)
+            os.makedirs(mask_dir, exist_ok=True)
+            lines_local, lines_global = [], []
+            for i in range(n):
+                img, mask = _fundus_pair(rng, size)
+                rel_img = f"{split}/image/{i:03d}.png"
+                rel_mask = f"{split}/mask/{i:03d}.png"
+                Image.fromarray(img).save(os.path.join(base, dom, rel_img))
+                Image.fromarray(mask).save(os.path.join(base, dom, rel_mask))
+                lines_local.append(f"{rel_img} {rel_mask}")
+                lines_global.append(f"{dom}/{rel_img} {dom}/{rel_mask}")
+            with open(os.path.join(base, dom, f"{split}.list"), "w") as f:
+                f.write("\n".join(lines_local) + "\n")
+            with open(os.path.join(base, f"{dom}_{split}.list"), "w") as f:
+                f.write("\n".join(lines_global) + "\n")
+    return base

@@ -1,0 +1,127 @@
+"""Batch normalisation with nn.BatchNorm2d semantics, NCHW (PyTorch port of
+`ramdsir_tpu/models/norm.py`).
+
+Train mode normalises with the biased batch variance and moves the running
+variance with the unbiased one, momentum 0.1: new = (1-m)*old + m*batch.
+Parameters and buffers carry nn.BatchNorm2d's names (weight, bias,
+running_mean, running_var), without num_batches_tracked, so the
+reference's state dicts load with strict=True.
+
+dual=True: the batch is [pass1; pass2] of the fused clean/RAM forward.  Each
+half is normalised with its own statistics and the running statistics take
+pass1's update, then pass2's, exactly the reference's two consecutive
+forwards.
+
+n_valid: only the first n_valid rows (of each half under dual) are real;
+statistics come from them alone, every row is normalised.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+BN_MOMENTUM = 0.1
+
+
+def _train_norm(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    running_mean: torch.Tensor,
+    running_var: torch.Tensor,
+    momentum: float,
+    eps: float,
+    n_stats: Optional[int] = None,
+) -> torch.Tensor:
+    """Train-mode BN of x (N, C, H, W) with statistics from x[:n_stats];
+    updates the running statistics in place."""
+    if n_stats is None or n_stats >= x.shape[0]:
+        return F.batch_norm(x, running_mean, running_var, weight, bias, True, momentum, eps)
+    real = x[:n_stats]
+    var, mean = torch.var_mean(real, dim=(0, 2, 3), correction=0)
+    n = real.numel() / real.shape[1]
+    with torch.no_grad():
+        running_mean.mul_(1.0 - momentum).add_(mean, alpha=momentum)
+        running_var.mul_(1.0 - momentum).add_(var * (n / max(n - 1.0, 1.0)), alpha=momentum)
+    scale = weight * torch.rsqrt(var + eps)
+    return (x - mean[None, :, None, None]) * scale[None, :, None, None] + bias[None, :, None, None]
+
+
+class BatchNorm(nn.Module):
+    def __init__(self, features: int, momentum: float = BN_MOMENTUM, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def normalize_running(self, x: torch.Tensor) -> torch.Tensor:
+        """Eval-mode normalisation with the running statistics."""
+        return F.batch_norm(
+            x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps
+        )
+
+    def forward(
+        self, x: torch.Tensor, *, dual: bool = False, n_valid: Optional[int] = None
+    ) -> torch.Tensor:
+        if not self.training:
+            return self.normalize_running(x)
+        args = (self.weight, self.bias, self.running_mean, self.running_var, self.momentum, self.eps)
+        if dual:
+            return torch.cat([_train_norm(h, *args, n_valid) for h in x.chunk(2)])
+        return _train_norm(x, *args, n_valid)
+
+
+class DomainSpecificBatchNorm(nn.Module):
+    """A bank of per-domain BatchNorms (`bns.{d}.*`).
+
+    domain an int: the whole batch belongs to that domain.  domain a
+    sequence of per-sample labels (segment mode): each domain's rows are
+    normalised with their own statistics and running statistics, the convs
+    around the norm still see the whole batch.  A domain with no real row
+    keeps its running statistics, and its (padding) rows are normalised with
+    them.
+    """
+
+    def __init__(self, features: int, num_domains: int, momentum: float = BN_MOMENTUM, eps: float = 1e-5):
+        super().__init__()
+        self.bns = nn.ModuleList(BatchNorm(features, momentum, eps) for _ in range(num_domains))
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        domain: Union[int, Sequence[int], np.ndarray],
+        *,
+        n_valid: Optional[int] = None,
+    ) -> torch.Tensor:
+        if np.ndim(domain) == 0:
+            return self.bns[int(domain)](x, n_valid=n_valid)
+        labels = np.asarray(domain).reshape(-1)
+        if labels.shape[0] != x.shape[0]:
+            raise ValueError(f"{labels.shape[0]} domain labels for a batch of {x.shape[0]}")
+        n_real = x.shape[0] if n_valid is None else n_valid
+        order = np.argsort(labels, kind="stable")
+        pieces = []
+        for d in np.unique(labels):
+            rows = np.flatnonzero(labels == d)
+            bn = self.bns[int(d)]
+            # contiguous blocks (the train step's layout) are slices; any
+            # other labelling gathers its rows
+            xd = x[rows[0] : rows[-1] + 1] if rows[-1] - rows[0] + 1 == len(rows) else x[torch.as_tensor(rows, device=x.device)]
+            n_stats = int(np.sum(rows < n_real))
+            if not self.training or n_stats == 0:
+                pieces.append(bn.normalize_running(xd))
+            else:
+                pieces.append(bn(xd, n_valid=n_stats))
+        out = torch.cat(pieces)
+        if np.array_equal(order, np.arange(len(labels))):
+            return out
+        inverse = np.empty_like(order)
+        inverse[order] = np.arange(len(order))
+        return out[torch.as_tensor(inverse, device=x.device)]

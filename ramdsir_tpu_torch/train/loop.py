@@ -1,0 +1,136 @@
+"""The training loop (PyTorch port of `ramdsir_tpu/train/loop.py:158-478`,
+fundus, one device, one step per dispatch).
+
+Eval is not ported yet: where the JAX `fit` evaluates (every `eval_every`
+epochs and at the end), this one prints that eval is not ported, and the
+summary carries "eval": "not_ported".
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+import ramdsir_tpu_torch
+from ramdsir_tpu_torch.config import TrainConfig
+from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
+from ramdsir_tpu_torch.data.fundus import FundusMultiDataset
+from ramdsir_tpu_torch.train.state import init_state
+from ramdsir_tpu_torch.train.steps import check_supported, make_train_step
+from ramdsir_tpu_torch.utils.device import resolve_device
+from ramdsir_tpu_torch.utils.logging import MetricsWriter
+from ramdsir_tpu_torch.utils.profiler import StepTimer
+from ramdsir_tpu_torch.utils.torch_compat import export_torch_checkpoint
+
+
+def tf32_settings() -> Dict[str, bool]:
+    """Whether float32 convolutions (cuDNN) and matrix products may use TF32."""
+    return {
+        "cudnn_allow_tf32": bool(torch.backends.cudnn.allow_tf32),
+        "matmul_allow_tf32": bool(torch.backends.cuda.matmul.allow_tf32),
+    }
+
+
+def save_run_config(save_dir: str, cfg: TrainConfig) -> None:
+    """The resolved config, the package version and the TF32 settings."""
+    os.makedirs(save_dir, exist_ok=True)
+    with open(os.path.join(save_dir, "run_config.json"), "w") as f:
+        json.dump(
+            {
+                "version": ramdsir_tpu_torch.__version__,
+                "torch": torch.__version__,
+                "tf32": tf32_settings(),
+                "config": dataclasses.asdict(cfg),
+            },
+            f, indent=2, default=str,
+        )
+
+
+def build_train_pipeline(cfg: TrainConfig, data_root: str) -> DeviceFundusPipeline:
+    """The fundus PNG tree under data_root, on cfg.device."""
+    datasets = [FundusMultiDataset(data_root, [d]) for d in cfg.domain_idxs]
+    return DeviceFundusPipeline.from_tree(
+        datasets, cfg.batch_size_list[: len(datasets)], data_root, cfg.image_size,
+        cfg.test_domain_idx, is_out_domain=cfg.is_out_domain, seed=cfg.seed,
+        precompute_donor_amp=cfg.ram_precompute_donor_amp and cfg.ram, device=cfg.device,
+    )
+
+
+def fit(
+    cfg: TrainConfig,
+    eval_every: int = 1,
+    max_steps: Optional[int] = None,
+    pipeline: Optional[DeviceFundusPipeline] = None,
+) -> Dict:
+    """Train on cfg.device; returns a summary dict.  `pipeline` replaces the
+    one read from cfg.data_root (an in-memory set, for smoke runs)."""
+    cfg = cfg.resolve()
+    check_supported(cfg)
+    if not cfg.device_data:
+        raise NotImplementedError("device_data=False is not ported yet (ROADMAP.md: host loaders)")
+    device = resolve_device(cfg.device)
+    if cfg.deterministic:
+        # reference train.py:608-614
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.deterministic = True
+        np.random.seed(cfg.seed)
+    save_dir = cfg.save_path
+    save_run_config(save_dir, cfg)
+    if pipeline is None:
+        pipeline = build_train_pipeline(cfg, os.path.join(cfg.data_root, cfg.dataset))
+    steps_per_epoch = len(pipeline)
+    total_iters = steps_per_epoch * cfg.epochs
+    b_real = sum(pipeline.batch_sizes)
+
+    generator = torch.Generator().manual_seed(cfg.seed)
+    state = init_state(cfg, generator, device)
+    train_step = make_train_step(
+        cfg, total_iters, batch_size_list=pipeline.batch_sizes, device_data=pipeline.device_data
+    )
+    writer = MetricsWriter(os.path.join(save_dir, "log"))
+    timer = StepTimer(device=device)
+
+    step = 0
+    done = False
+    epoch = 0
+    while epoch < cfg.epochs and not done:
+        t_ep = time.time()
+        for row in pipeline:
+            metrics = train_step(state, row, generator)
+            lr = float(metrics.pop("lr"))
+            names = list(metrics)
+            values = torch.stack([metrics[k] for k in names]).tolist()  # one device sync
+            timer.tick(b_real)
+            if step % cfg.log_interval == 0:
+                writer.add_scalars(dict(zip(names, values)), step, prefix="loss/")
+                writer.add_scalars({"lr": lr}, step)
+            step += 1
+            if max_steps is not None and step >= max_steps:
+                done = True
+                break
+        if (epoch + 1) % eval_every == 0 or done:
+            timer.mark()
+            writer.flush()
+            print(
+                f"epoch {epoch}: eval is not ported yet (ROADMAP.md: Eval) | "
+                f"{timer.items_per_sec:.1f} img/s | epoch {time.time() - t_ep:.1f}s",
+                flush=True,
+            )
+        epoch += 1
+
+    timer.mark()
+    final_path = os.path.join(save_dir, "final_model.pth")
+    export_torch_checkpoint(final_path, state.models)
+    writer.close()
+    return {
+        "steps": step,
+        "images_per_sec": timer.items_per_sec,
+        "median_step_ms": timer.median_step_ms,
+        "final_checkpoint": final_path,
+        "eval": "not_ported",
+    }

@@ -1,0 +1,212 @@
+"""The fundus train step (PyTorch port of `ramdsir_tpu/train/steps.py:50-436`).
+
+One call covers the reference's hot-loop iteration (code/train.py:223-331):
+RAM on the clean batch, one encoder + seg-decoder forward over the
+concatenation [clean; RAM] with per-half BN statistics, BCE + dice on both
+halves, 0.5 x KD consistency, the restoration decoder with domain-specific
+BN over the whole RAM bottleneck, and Adam with the poly LR (encoder at
+lr x 0.5 under --rec).
+
+Randomness: every draw of a step (the RAM ratios and, with the device
+pipeline, the scale-crop's apply/factor/offset draws) comes from
+`sample_step_draws`, in one place, from one Generator; a caller may pass the
+draws instead (the tests pass the numbers the JAX functions drew).
+
+Layout: batch dicts are NHWC as in the JAX package; the step works on NCHW
+from the encoder on.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Mapping, Optional
+
+import numpy as np
+import torch
+
+from ramdsir_tpu_torch.config import CONSISTENCY_WEIGHT, POLY_POWER, TrainConfig
+from ramdsir_tpu_torch.data.device_pipeline import gather_and_augment, sample_crop_draws
+from ramdsir_tpu_torch.ops.losses import bce_with_logits_loss, dice_loss, kd_loss, mse_loss
+from ramdsir_tpu_torch.ops.ram import (
+    ram_augment_fundus,
+    ram_augment_fundus_banded,
+    sample_ram_ratios,
+)
+from ramdsir_tpu_torch.train.state import TrainState
+
+
+def check_supported(cfg: TrainConfig) -> None:
+    """Raise NotImplementedError for what this port does not run yet, naming
+    the ROADMAP.md item."""
+    unported = [
+        (cfg.dataset != "fundus", "--dataset prostate", "Prostate"),
+        (cfg.compute_dtype != "float32", "--compute_dtype bfloat16", "bf16 autocast"),
+        (bool(cfg.num_devices) and cfg.num_devices > 1, "--num_devices > 1", "Multi-GPU DDP"),
+        (cfg.remat, "--remat", "off-path variants"),
+        (bool(cfg.checkpoint_resume), "--resume", "Resume and checkpoint interchange"),
+        (bool(cfg.trace_dir), "--trace_dir", "the port's own benchmark"),
+        (cfg.norm != "bn", f"--norm {cfg.norm}", "off-path variants"),
+        (bool(cfg.global_batch), "--global_batch", "Multi-GPU DDP"),
+        (not (cfg.fused_dual and cfg.fused_dsbn), "the non-fused forward", "off-path variants"),
+    ]
+    for bad, what, item in unported:
+        if bad:
+            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {item})")
+    if cfg.consistency and cfg.consistency_type not in ("mse", "kd"):
+        raise ValueError(f"unknown consistency_type {cfg.consistency_type!r} (use 'mse' or 'kd')")
+
+
+def sample_step_draws(
+    generator: torch.Generator, batch: int, device: torch.device, crop: bool = True
+) -> Dict[str, torch.Tensor]:
+    """All of one step's random draws, on `device`: the RAM ratios and, with
+    crop=True, the scale-crop's draws."""
+    draws = sample_crop_draws(generator, batch) if crop else {}
+    draws["ratio"] = sample_ram_ratios(generator, batch)
+    return {k: v.to(device) for k, v in draws.items()}
+
+
+def poly_lr(base_lr: float, step: int, total_iters: int) -> float:
+    """The reference sets the schedule after optimizer.step() from the
+    pre-increment counter, so step i runs at lr(max(i-1, 0))."""
+    return base_lr * (1.0 - max(step - 1, 0) / total_iters) ** POLY_POWER
+
+
+def make_train_step(
+    cfg: TrainConfig,
+    total_iters: int,
+    batch_size_list: Optional[List[int]] = None,
+    device_data: Optional[Mapping[str, torch.Tensor]] = None,
+    debug_grads: bool = False,
+) -> Callable:
+    """Build `train_step(state, batch, generator=None, draws=None) -> metrics`.
+
+    batch (NHWC): img (B,H,W,3) float [0,255], mask (B,H,W,2) float, and
+    either donor_amp (B,2b+1,b+1,3) banded donor amplitudes or donor
+    (B,H,W,3) [0,255] donor images.  With `device_data` (the device
+    pipeline's arrays) batch is instead {img_idx, donor_idx} index rows, and
+    the step gathers and scale-crops on the device.
+
+    The step updates `state` in place (modules, BN running statistics, Adam,
+    state.step) and returns its metrics as 0-d tensors under the JAX
+    package's keys; debug_grads=True adds the raw gradients under "_grads".
+    """
+    cfg = cfg.resolve()
+    check_supported(cfg)
+    bsl = list(batch_size_list or cfg.batch_size_list)[: len(cfg.domain_idxs)]
+    b_real = sum(bsl)
+    domains = np.repeat(np.arange(len(bsl)), bsl)  # per-sample DSBN labels
+    base_lr = float(cfg.lr)
+    group_factor = {"encoder": 0.5 if cfg.rec else 1.0}
+    seg_cache: Dict[tuple, torch.Tensor] = {}
+
+    def rec_weights(shape, device) -> torch.Tensor:
+        """(D, B) segment matrix with each domain's 1/(bs*C*H*W): per-domain
+        mean squared errors as one product."""
+        key = (tuple(shape), device)
+        if key not in seg_cache:
+            seg = np.zeros((len(bsl), b_real), np.float32)
+            left = 0
+            for d, bs in enumerate(bsl):
+                seg[d, left : left + bs] = 1.0 / (bs * float(np.prod(shape[1:])))
+                left += bs
+            seg_cache[key] = torch.from_numpy(seg).to(device)
+        return seg_cache[key]
+
+    def nchw(x: torch.Tensor) -> torch.Tensor:
+        return x.permute(0, 3, 1, 2).contiguous()
+
+    def loss_fn(state: TrainState, batch, draws):
+        enc = state.models["encoder"]
+        dec = state.models["seg_decoder"]
+        metrics: Dict[str, torch.Tensor] = {}
+        if cfg.ram:
+            if "donor_amp" in batch:
+                img, img_freq = ram_augment_fundus_banded(
+                    batch["img"], batch["donor_amp"], draws["ratio"], use_dft=cfg.ram_banded_dft
+                )
+            else:
+                img, img_freq = ram_augment_fundus(batch["img"], batch["donor"], draws["ratio"])
+        else:
+            img, img_freq = batch["img"] / 127.5 - 1.0, None
+        img = nchw(img)
+        mask = nchw(batch["mask"])[:b_real]
+
+        if cfg.ram:
+            # one forward over [clean; RAM]: per-half BN statistics, the two
+            # running-stat updates in order (models/norm.py)
+            half = img.shape[0]
+            feats = enc(torch.cat([img, nchw(img_freq)]), dual=True)
+            logits_all = dec(feats, dual=True)
+            logits1, logits2 = logits_all[:b_real], logits_all[half : half + b_real]
+            feats_f_last = feats[-1][half:]
+        else:
+            logits1 = dec(enc(img))[:b_real]
+
+        pred1 = torch.sigmoid(logits1)
+        loss_bce1, loss_dice1 = bce_with_logits_loss(logits1, mask), dice_loss(pred1, mask)
+        loss = loss_bce1 + loss_dice1
+        metrics.update(loss_bce_1=loss_bce1, loss_dice_1=loss_dice1)
+
+        if cfg.ram:
+            pred2 = torch.sigmoid(logits2)
+            loss_bce2, loss_dice2 = bce_with_logits_loss(logits2, mask), dice_loss(pred2, mask)
+            loss = loss + loss_bce2 + loss_dice2
+            loss_cons = img.new_zeros(())
+            if cfg.consistency:
+                if cfg.consistency_type == "kd":
+                    loss_cons = kd_loss(pred2, pred1, eps=1e-8)
+                else:
+                    loss_cons = mse_loss(pred2, pred1)
+            loss = loss + CONSISTENCY_WEIGHT * loss_cons
+            avg_rec = img.new_zeros(())
+            if cfg.rec:
+                # one rec-decoder pass over the whole RAM bottleneck, DSBN in
+                # segment mode; per-domain MSE through the segment matrix
+                rec_soft = torch.tanh(state.models["rec_decoder"](feats_f_last, domain=domains))
+                per_row = torch.sum(torch.square(rec_soft[:b_real] - img[:b_real]), dim=(1, 2, 3))
+                loss_rec_d = rec_weights(rec_soft[:b_real].shape, img.device) @ per_row
+                avg_rec = torch.sum(loss_rec_d)
+                loss = loss + cfg.lambda_rec * avg_rec
+            metrics.update(
+                loss_bce_2=loss_bce2,
+                loss_dice_2=loss_dice2,
+                loss_consistency=loss_cons,
+                loss_rec=avg_rec / 4.0,  # the reference logs avg_rec_loss/4
+            )
+        metrics["loss"] = loss
+        return loss, metrics
+
+    def train_step(
+        state: TrainState,
+        batch: Mapping,
+        generator: Optional[torch.Generator] = None,
+        draws: Optional[Mapping[str, torch.Tensor]] = None,
+    ) -> Dict:
+        device = next(state.models["encoder"].parameters()).device
+        if draws is None:
+            if generator is None:
+                raise ValueError("train_step needs a generator or precomputed draws")
+            draws = sample_step_draws(generator, b_real, device, crop=device_data is not None)
+        if device_data is not None:
+            idx = {k: torch.as_tensor(np.asarray(v), dtype=torch.long).to(device) for k, v in batch.items()}
+            batch = gather_and_augment(device_data, idx["img_idx"], idx["donor_idx"], draws, cfg.image_size)
+        for m in state.models.values():
+            m.train()
+        opt = state.optimizer
+        opt.zero_grad(set_to_none=True)
+        loss, metrics = loss_fn(state, batch, draws)
+        loss.backward()
+        if debug_grads:
+            metrics["_grads"] = {
+                name: {k: p.grad.detach().clone() for k, p in m.named_parameters()}
+                for name, m in state.models.items()
+            }
+        lr = poly_lr(base_lr, state.step, total_iters)
+        for name, group in zip(state.models, opt.param_groups):
+            group["lr"] = lr * group_factor.get(name, 1.0)
+        opt.step()
+        state.step += 1
+        metrics = {k: (v if k == "_grads" else v.detach()) for k, v in metrics.items()}
+        metrics["lr"] = torch.tensor(lr)
+        return metrics
+
+    return train_step
