@@ -7,15 +7,24 @@ result line):
   build       K1 (csrc/ram_mix.cu) compiled with nvcc for sm_90a
   kernel      K1 against its plain PyTorch version on the card, in full,
               band and delta modes, at the main path's shapes and at
-              (65, 63), plus the zero-amplitude and ratio-1 cases; times
-              with CUDA events over cold-L2 launches, and the bound
+              (65, 63), plus the zero-amplitude and ratio-1 cases, a
+              spectrum off 16 bytes (the strided path), a single plane, an
+              odd element count and tiny out-of-band amplitudes (bit-equal);
+              each case names the code path it launched.  At the main
+              path's shapes: `ms`, CUDA events around one cold-L2 call
+              after an L2 flush that leaves dirty lines, and
+              `floor_ms`, an empty launch timed the same way; `kernel_ms`,
+              the kernel's own device time (torch.profiler), beside
+              `kernel_floor_ms`; `ms_clean_flush` and `floor_ms_clean_flush`,
+              the same two after a flush that leaves L2 clean (a read instead
+              of zero_); the bound from `k1_min_bytes`
   ram_oracle  the RAM functions on the card against a float64 numpy oracle
   main_path   the fundus trainer (`train.loop.fit`) at 256^2, U-Net n=16,
               batch 16 = 3+6+7 over domains 1,2,3, on an in-memory synthetic
               set: the defaults (banded-DFT RAM, K1 band-delta mode),
               ram_use_pallas (K1 full mode) and no_ram_banded_dft (K1 band
               mode); K1's launch count is read around each run and must equal
-              its step count
+              its step count, all through the mode's own code path
   profile     where a default step's device time goes (torch.profiler)
   step_parity one step with K1 and the same step with the plain mix, from
               the same state and draws (TF32 off, deterministic cuDNN)
@@ -24,6 +33,7 @@ Run artefacts go to chiprun_out/chip_smoke/.
 """
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -43,6 +53,10 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 
 B, C, S = 16, 3, 256  # main path: batch 16, RGB, 256^2
 STEPS = {"default": 30, "ram_use_pallas": 10, "no_ram_banded_dft": 10}
+
+
+MAIN_PATHS = {"default": "delta_flat", "ram_use_pallas": "full_vec", "no_ram_banded_dft": "strided"}
+MODE_PATHS = {"full": "full_vec", "band": "strided", "delta": "delta_flat"}
 
 
 def emit(phase, **kw):
@@ -65,6 +79,19 @@ def peak_bandwidth(name):
 
 
 # --- K1 against its plain version ------------------------------------------
+
+
+def k1_min_bytes(n, c, h, wh, band, mode):
+    """The least bytes K1 must move, each needed byte once, for a finite
+    non-zero spectrum.  Full mode (in place) reads the whole (h, wh)
+    spectrum, 8 bytes a complex element, and writes back only the band:
+    out of it z*(amp/amp) is z.  It reads the donor amplitude (4 bytes) in
+    the band only.  Band and delta modes read and write the band and read its
+    donor amplitudes.  Plus one 4-byte ratio a sample."""
+    band_elems = n * c * (2 * band + 1) * (band + 1)
+    if mode == "full":
+        return 8 * n * c * h * wh + (8 + 4) * band_elems + 4 * n
+    return (8 + 8 + 4) * band_elems + 4 * n
 
 
 def cuda_time_ms(fn, reps=30, flush=None):
@@ -91,12 +118,37 @@ def cuda_time_ms(fn, reps=30, flush=None):
     return statistics.median(times)
 
 
-def kernel_cases(torch, tram, ram_mix, gen):
-    """(name, inputs) for every mode at the main path's shapes and (65, 63)."""
+def kernel_time_ms(fn, key, reps=30, flush=None):
+    """Median device time of the kernels whose name holds `key`, one a
+    call, from torch.profiler's CUDA activity: the kernel alone, without
+    the launch and event overhead that `cuda_time_ms` holds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    def spectrum(n, h, w):
-        x = torch.rand((n, C, h, w), generator=gen, device="cuda") * 255.0
-        return torch.fft.rfft2(x)  # (n, C, h, w//2+1) complex64
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA and key in e.name]
+    if len(times) != reps:
+        raise SystemExit(f"profiler saw {len(times)} kernels named *{key}* in {reps} calls")
+    return statistics.median(times)
+
+
+def kernel_cases(torch, tram, ram_mix, gen):
+    """(name, inputs) for every mode at the main path's shapes and (65, 63),
+    and the corner cases."""
+
+    def spectrum(n, h, w, c=C):
+        x = torch.rand((n, c, h, w), generator=gen, device="cuda") * 255.0
+        return torch.fft.rfft2(x)  # (n, c, h, w//2+1) complex64
 
     cases = []
     for h, w in ((S, S), (65, 63)):
@@ -130,14 +182,55 @@ def kernel_cases(torch, tram, ram_mix, gen):
     cases.append(("ratio1_band", dict(z=z, amp=amp_band, ratio=one, band=b, full=False, delta=False, identity=True)))
     cases.append(("ratio1_delta", dict(z=z[:, :, torch.cat([torch.arange(b + 1), torch.arange(h - b, h)]).cuda(), : b + 1],
                                       amp=amp_band, ratio=one, band=b, full=False, delta=True, identity=True)))
+    # one complex element off 16 bytes: the strided path
+    cases.append(("misaligned_full", dict(z=z, amp=amp_full, ratio=r, band=b, full=True, delta=False, offset=1)))
+    cases.append(("misaligned_band", dict(z=z, amp=amp_band, ratio=r, band=b, full=False, delta=False, offset=1)))
+    # amplitudes whose squares underflow (below 2^-75) or are subnormal, and
+    # zeros, out of the band: the plain version's values, bit for bit
+    zt = z.clone()
+    tiny = torch.tensor([1e-23, -2e-23 + 1e-24j, 3e-23, 1e-20j, 0.0, -0.0, 1e-30 - 1e-30j], device="cuda")
+    zt[:, :, h // 2, b + 1 : b + 1 + len(tiny)] = tiny
+    zt[:, :, b + 1, : len(tiny)] = tiny
+    cases.append(("tiny_full", dict(z=zt, amp=amp_full, ratio=r, band=b, full=True, delta=False, exact=True)))
+    # a single plane (N*C = 1) at the main path's size
+    h = w = S
+    b = tram.band_halfwidth(h, w)
+    z = spectrum(1, h, w, c=1)
+    donor = torch.rand((1, h, w, 1), generator=gen, device="cuda") * 255.0
+    amp_full = tram.amplitude_spectrum(donor).permute(0, 3, 1, 2)
+    amp_band = tram.banded_amplitude_spectrum(donor).permute(0, 3, 1, 2)
+    r = torch.tensor([0.3], device="cuda")
+    rows = torch.cat([torch.arange(b + 1, device="cuda"), torch.arange(h - b, h, device="cuda")])
+    cases.append(("single_plane_full", dict(z=z, amp=amp_full, ratio=r, band=b, full=True, delta=False)))
+    cases.append(("single_plane_band", dict(z=z, amp=amp_band, ratio=r, band=b, full=False, delta=False)))
+    cases.append(("single_plane_delta", dict(z=z[:, :, rows, : b + 1], amp=amp_band, ratio=r, band=b, full=False, delta=True)))
+    # an odd element count (65 x 33): the last element has no float4 partner
+    h, w = 65, 64
+    donor = torch.rand((1, h, w, 1), generator=gen, device="cuda") * 255.0
+    z = spectrum(1, h, w, c=1)
+    amp_full = tram.amplitude_spectrum(donor).permute(0, 3, 1, 2)
+    cases.append(("odd_count_full", dict(z=z, amp=amp_full, ratio=r, band=tram.band_halfwidth(h, w), full=True, delta=False)))
+    for _, case in cases:
+        case["mode"] = "full" if case["full"] else "delta" if case["delta"] else "band"
+        case["path"] = "strided" if case.get("offset") else MODE_PATHS[case["mode"]]
     return cases
+
+
+def at_offset(t, offset):
+    """A copy of t that starts `offset` elements into its storage."""
+    import torch
+
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def run_mix(fn, case):
     """Apply one mix to fresh copies; returns the output planes."""
     import torch
 
-    z = case["z"].clone()
+    z = at_offset(case["z"], case.get("offset", 0))
     if case["delta"]:
         re, im = z.real.contiguous(), z.imag.contiguous()  # the DFT path's separate blocks
     else:
@@ -150,12 +243,25 @@ def run_mix(fn, case):
 def phase_kernel(torch, tram, ram_mix, bw):
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
+    # zeroing 128 MB evicts the kernel's data and leaves 50 MB of dirty lines
+    # in L2, whose write-back the timed kernel pays, as on the main path
+    # after the FFTs that write the spectrum; reading them leaves L2 clean
     flush = lambda: flush_buf.zero_()
+    clean_flush = lambda: flush_buf.sum()
     results = {}
+    # an empty launch under the same timing: the least a launch-bound mode can take
+    spin = lambda: torch.cuda._sleep(1)
+    floor_ms = cuda_time_ms(spin, flush=flush)
+    floor_ms_clean_flush = cuda_time_ms(spin, flush=clean_flush)
+    kernel_floor_ms = kernel_time_ms(spin, "spin", flush=flush)
     for name, case in kernel_cases(torch, tram, ram_mix, gen):
+        by_path = dict(ram_mix.launches_by_path)
         got, before = run_mix(ram_mix.mix_spectrum, case)
+        path = [p for p, k in ram_mix.launches_by_path.items() if k != by_path[p]]
         want, _ = run_mix(ram_mix.mix_spectrum_plain, case)
         torch.cuda.synchronize()
+        if path != [case["path"]]:
+            raise SystemExit(f"K1 {name}: launched {path}, expected the {case['path']} path")
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
         rel = err / max(scale, 1e-30)
@@ -169,18 +275,16 @@ def phase_kernel(torch, tram, ram_mix, bw):
             exact = (got == 0).all() if case["delta"] else (got == before).all()
             if not exact:
                 raise SystemExit(f"K1 {name}: ratio 1 is not the exact identity")
-        entry = dict(case=name, max_abs_err=err, max_rel_err=rel)
+        if case.get("exact") and not torch.equal(got, want):
+            raise SystemExit(f"K1 {name}: not bit-equal to the plain version")
+        entry = dict(case=name, path=case["path"], max_abs_err=err, max_rel_err=rel)
         if name.endswith(f"@{S}x{S}"):
             n, c, h, wh = case["z"].shape if not case["delta"] else (B, C, S, S // 2 + 1)
             b = case["band"]
             band_elems = n * c * (2 * b + 1) * (b + 1)
-            if case["full"]:
-                elems = n * c * h * wh
-                nbytes = 16 * elems + 4 * band_elems + 4 * n  # re, im in+out; donor band; ratios
-                flops = 10 * elems
-            else:
-                nbytes = 20 * band_elems + 4 * n
-                flops = 10 * band_elems
+            nbytes = k1_min_bytes(n, c, h, wh, b, case["mode"])
+            # |z|^2 of every element (3 flops), the mix of the band's (~10)
+            flops = 3 * n * c * h * wh + 10 * band_elems if case["full"] else 10 * band_elems
             bound_ms = 1e3 * max(nbytes / bw, flops / PEAK_F32_FLOPS)
             keep = case["z"].clone()
 
@@ -195,13 +299,18 @@ def phase_kernel(torch, tram, ram_mix, bw):
 
             if case["delta"]:
                 case["_re"], case["_im"] = case["z"].real.contiguous(), case["z"].imag.contiguous()
-            launches_before = ram_mix.launches
+            launches_before, by_path = ram_mix.launches, dict(ram_mix.launches_by_path)
             ms = cuda_time_ms(lambda: timed(ram_mix.mix_spectrum), flush=flush)
+            kernel_ms = kernel_time_ms(lambda: timed(ram_mix.mix_spectrum), "mix_", flush=flush)
+            ms_clean_flush = cuda_time_ms(lambda: timed(ram_mix.mix_spectrum), flush=clean_flush)
             plain_ms = cuda_time_ms(lambda: timed(ram_mix.mix_spectrum_plain), flush=flush)
             ram_mix.launches = launches_before  # comparison launches do not count
+            ram_mix.launches_by_path.update(by_path)
             entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes"
                          if nbytes / bw >= flops / PEAK_F32_FLOPS else "operations",
-                         bytes=nbytes, library_ms=None)
+                         bytes=nbytes, floor_ms=floor_ms, kernel_ms=kernel_ms,
+                         kernel_floor_ms=kernel_floor_ms, ms_clean_flush=ms_clean_flush,
+                         floor_ms_clean_flush=floor_ms_clean_flush, library_ms=None)
         results[name] = entry
         emit("kernel", **entry)
     return results
@@ -285,11 +394,13 @@ def phase_main_path(torch, np, ram_mix, arrays):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ram_mix.launches = 0
+        ram_mix.launches_by_path.update(dict.fromkeys(ram_mix.launches_by_path, 0))
         t0 = time.perf_counter()
         summary = fit(cfg, max_steps=steps, pipeline=pipe)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ram_mix.launches
+        paths = {p: k for p, k in ram_mix.launches_by_path.items() if k}
         peak = torch.cuda.max_memory_allocated()
         rows = [json.loads(line) for line in open(os.path.join(run_dir, "log", "metrics.jsonl"))]
         losses = [v for r in rows for k, v in r.items() if k.startswith("loss/")]
@@ -299,7 +410,7 @@ def phase_main_path(torch, np, ram_mix, arrays):
         for mname, module in build_models(cfg).items():
             module.load_state_dict(payload[f"{mname}_state_dict"], strict=True)
         entry = dict(
-            run=name, steps=summary["steps"], k1_launches=launches, losses_finite=finite,
+            run=name, steps=summary["steps"], k1_launches=launches, k1_paths=paths, losses_finite=finite,
             first_loss=rows[0]["loss/loss"], last_loss=[r for r in rows if "loss/loss" in r][-1]["loss/loss"],
             median_step_ms=summary["median_step_ms"], images_per_sec=summary["images_per_sec"],
             peak_memory_bytes=peak, wall_s=wall, batch=sum(cfg.batch_size_list), image_size=S,
@@ -310,6 +421,8 @@ def phase_main_path(torch, np, ram_mix, arrays):
             raise SystemExit(f"main path {name}: non-finite or missing losses")
         if summary["steps"] != steps or launches != steps:
             raise SystemExit(f"main path {name}: {summary['steps']} steps, {launches} K1 launches, expected {steps}")
+        if paths != {MAIN_PATHS[name]: steps}:
+            raise SystemExit(f"main path {name}: K1 paths {paths}, expected {MAIN_PATHS[name]} only")
         runs[name] = entry
     return runs
 
@@ -369,7 +482,7 @@ def phase_step_parity(torch, np, ram_mix, arrays):
 
 
 KERNEL_GROUPS = [  # (group, substrings of CUDA kernel names), first match wins
-    ("K1 ram_mix", ("ram_mix",)),
+    ("K1 ram_mix", ("mix_full_vec_kernel", "mix_delta_flat_kernel", "mix_strided_kernel")),
     ("fft", ("fft", "radix", "regular_fft", "vector_fft")),
     ("batch_norm", ("batch_norm", "bn_", "welford")),
     ("layout nchw<->nhwc", ("nchwToNhwc", "nhwcToNchw")),
@@ -451,7 +564,15 @@ def phase_build(ram_mix):
             ram_mix._library()
         finally:
             ptxas_out, _ = ptxas.communicate(timeout=600)
-    info = [ln.strip() for ln in ptxas_out.splitlines() if "registers" in ln or "spill" in ln]
+    # ptxas prints each kernel's name, then its spills, then its registers
+    info, kernel = {}, None
+    for ln in ptxas_out.splitlines():
+        if "Compiling entry function" in ln:
+            found = re.search(r"mix_[a-z_]+?_kernel", ln)
+            kernel = found.group(0) if found else ln.strip()
+            kernel += "<full>" if "ILb1E" in ln else "<delta>" if "ILb0ELb1E" in ln else "<band>" if "ILb0ELb0E" in ln else ""
+        elif kernel and ("registers" in ln or "spill" in ln):
+            info.setdefault(kernel, []).append(ln.split(":", 1)[-1].strip())
     emit("build", library=os.path.relpath(path, REPO), seconds=time.perf_counter() - t0,
          nvcc_flags=list(ram_mix.NVCC_FLAGS), ptxas=info)
 
@@ -502,7 +623,8 @@ def main():
             "name": f"ram_mix[{label}]", "route": "cuda", "source": SOURCE_REL, "replaces": REPLACES,
             "launches": runs[run]["k1_launches"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": None,
+            "library_ms": None, "floor_ms": k["floor_ms"], "kernel_ms": k["kernel_ms"],
+            "ms_clean_flush": k["ms_clean_flush"], "floor_ms_clean_flush": k["floor_ms_clean_flush"], "path": k["path"],
         })
     print(card, flush=True)
     print(json.dumps(line), flush=True)

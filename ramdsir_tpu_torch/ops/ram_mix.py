@@ -9,7 +9,8 @@ the source's hash, into `ramdsir_tpu_torch/_build/`, and bound with ctypes.
 `mix_spectrum` is the only entry point.  It takes the plain version for
 tensors on the CPU (the tests) and launches the kernel for CUDA tensors; a
 CUDA tensor it cannot take raises, it never falls back.  `launches` counts
-kernel launches, so a run can show that it went through the kernel.
+kernel launches, so a run can show that it went through the kernel, and
+`launches_by_path` splits them by the kernel's code path (`_path`).
 
 Layouts (element strides, any memory order):
   re, im   (N, C, H, Wh) float32 planes of one rfft2 half-spectrum; they may
@@ -19,7 +20,10 @@ Layouts (element strides, any memory order):
            lays them out.
   ratio    (N,) float32, one mix ratio per sample.
 In band mode re/im are either a whole spectrum (its band rows past b sit at
-H-b..H-1) or a compact (N, C, 2b+1, b+1) block.
+H-b..H-1) or a compact (N, C, 2b+1, b+1) block.  The kernel has a float4
+path for full mode on the interleaved spectrum, a flat path for the DFT
+path's compact delta blocks and an element-strided path for the rest;
+`_layout` and `_path` choose it.
 """
 from __future__ import annotations
 
@@ -42,7 +46,9 @@ NVCC_FLAGS = (
 )
 FLT_MIN = float(torch.finfo(torch.float32).tiny)
 
+PATHS = ("strided", "full_vec", "delta_flat")  # the codes of ram_mix_launch
 launches = 0  # kernel launches; mix_spectrum adds one per launch
+launches_by_path = dict.fromkeys(PATHS, 0)
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -90,7 +96,8 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(build_library())
         fn = lib.ram_mix_launch
         fn.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 8
+            + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         _lib = lib
@@ -148,6 +155,41 @@ def mix_spectrum_plain(
     return re, im
 
 
+def _dense(t: torch.Tensor, strides) -> bool:
+    """t has these element strides on every axis longer than 1."""
+    return all(n == 1 or s == want for n, s, want in zip(t.shape, t.stride(), strides))
+
+
+def _layout(re: torch.Tensor, im: torch.Tensor) -> str:
+    """How the kernel may walk the (N, C, H, Wh) planes:
+
+    'interleaved'  re/im are `view_as_real` of one contiguous complex tensor
+                   (im 4 bytes after re, element stride 2), based on 16 bytes;
+    'planar'       two contiguous float32 tensors;
+    'strided'      anything else, walked by element strides.
+    """
+    n, c, h, wh = re.shape
+    if (
+        im.data_ptr() == re.data_ptr() + 4
+        and _dense(re, (2 * c * h * wh, 2 * h * wh, 2 * wh, 2))
+        and re.data_ptr() % 16 == 0
+    ):
+        return "interleaved"
+    if re.is_contiguous() and im.is_contiguous():
+        return "planar"
+    return "strided"
+
+
+def _path(layout: str, full: bool, delta: bool, compact: bool) -> str:
+    """The kernel's code path for a layout and mode: float4 pairs of an
+    interleaved spectrum (full mode), flat indices into compact planar
+    blocks (delta mode; `compact`: re/im are the (N, C, 2b+1, b+1) band), or
+    element strides (band mode in place, and every other layout)."""
+    if full:
+        return "full_vec" if layout == "interleaved" else "strided"
+    return "delta_flat" if delta and compact and layout == "planar" else "strided"
+
+
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
     if t.dtype != torch.float32:
         raise TypeError(f"ram_mix: {name} must be float32, got {t.dtype}")
@@ -198,19 +240,28 @@ def mix_spectrum(
     _check("ratio", ratio, (n,), dev)
     if not ratio.is_contiguous():
         raise ValueError("ram_mix: ratio must be contiguous")
-    if n * c > 65535:
-        raise ValueError(f"ram_mix: {n * c} planes exceed the grid's 65535")
+    if n * c * h * wh >= 2**31:
+        raise ValueError(f"ram_mix: {n * c * h * wh} elements exceed the kernel's 32-bit indices")
+    path = _path(_layout(re, im), full, delta, compact=(h, wh) == (rows, cols))
     if delta:
         out_re = torch.empty((n, c, rows, cols), dtype=torch.float32, device=dev)
         out_im = torch.empty_like(out_re)
     else:
         out_re, out_im = re, im
+    _launch(path, re, im, amp_t, ratio, band, out_re, out_im, full=full, delta=delta)
+    return out_re, out_im
 
+
+def _launch(path, re, im, amp_t, ratio, band, out_re, out_im, *, full, delta) -> None:
+    """Launch one code path of K1 on tensors `mix_spectrum` has checked."""
     global launches
+    n, c, h, _ = re.shape
+    rows, cols = amp_t.shape[-2:]
+    dev = re.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _library().ram_mix_launch(
-            re.data_ptr(), im.data_ptr(), amp_t.data_ptr(), ratio.data_ptr(),
+            PATHS.index(path), re.data_ptr(), im.data_ptr(), amp_t.data_ptr(), ratio.data_ptr(),
             out_re.data_ptr(), out_im.data_ptr(),
             *re.stride(), *amp_t.stride(), *out_re.stride(),
             n, c, rows, cols, band, h, int(full), int(delta), stream,
@@ -218,4 +269,4 @@ def mix_spectrum(
     if err != 0:
         raise RuntimeError(f"ram_mix kernel launch failed: CUDA error {err}")
     launches += 1
-    return out_re, out_im
+    launches_by_path[path] += 1

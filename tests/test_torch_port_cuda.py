@@ -21,29 +21,50 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def _inputs(gen, n, h, w):
-    x = torch.rand((n, 3, h, w), generator=gen, device="cuda") * 255.0
-    donor = torch.rand((n, h, w, 3), generator=gen, device="cuda") * 255.0
+def _inputs(gen, n, h, w, c=3):
+    x = torch.rand((n, c, h, w), generator=gen, device="cuda") * 255.0
+    donor = torch.rand((n, h, w, c), generator=gen, device="cuda") * 255.0
     ratio = torch.randint(1, 11, (n,), generator=gen, device="cuda").float() / 10.0
     return torch.fft.rfft2(x), donor, ratio
 
 
-def _mix(fn, z, amp, ratio, band, full, delta):
-    z = z.clone()
+def _at_offset(t, offset):
+    """A copy of t that starts `offset` elements into its storage."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _mix(fn, z, amp, ratio, band, full, delta, offset=0):
     if delta:
-        re, im = z.real.contiguous(), z.imag.contiguous()
+        re, im = _at_offset(z.real.contiguous(), offset), _at_offset(z.imag.contiguous(), offset)
     else:
-        zv = torch.view_as_real(z)
+        zv = torch.view_as_real(_at_offset(z, offset))
         re, im = zv[..., 0], zv[..., 1]
     out = fn(re, im, amp, ratio, band, full=full, delta=delta)
     return torch.stack(out)
 
 
-@pytest.mark.parametrize("h,w", [(64, 64), (65, 63), (256, 256)])
+# amplitudes whose squares underflow (below 2^-75), whose squares are
+# subnormal, zero and signed zero, out of the band and in it
+TINY = torch.tensor([1e-23, -2e-23 + 1e-24j, 3e-23, 1e-20j, 0.0, -0.0, 1e-30 - 1e-30j], dtype=torch.complex64)
+
+
+@pytest.mark.parametrize("variant", ["aligned", "misaligned", "single_plane", "tiny"])
+@pytest.mark.parametrize("h,w", [(64, 64), (65, 63), (65, 64), (256, 256)])
 @pytest.mark.parametrize("mode", ["full", "band", "delta"])
-def test_kernel_matches_plain(gen, h, w, mode):
-    z, donor, ratio = _inputs(gen, 4, h, w)
+def test_kernel_matches_plain(gen, h, w, mode, variant):
+    """Every code path against the plain version: the mode's own path on the
+    layouts the RAM functions make, the strided path on a spectrum one
+    element off 16 bytes (the delta blocks need no alignment), a single
+    plane (at 65x64 an odd element count), and tiny amplitudes (equal bit
+    for bit)."""
+    z, donor, ratio = _inputs(gen, 1, h, w, c=1) if variant == "single_plane" else _inputs(gen, 4, h, w)
     b = tram.band_halfwidth(h, w)
+    if variant == "tiny":
+        z[:, :, h // 2, b + 1 : b + 1 + len(TINY)] = TINY.cuda()
+        z[:, :, 1, 1 : 1 + len(TINY)] = TINY.cuda()
     if mode == "full":
         amp = tram.amplitude_spectrum(donor).permute(0, 3, 1, 2)
     else:
@@ -51,14 +72,20 @@ def test_kernel_matches_plain(gen, h, w, mode):
     if mode == "delta":
         rows = torch.cat([torch.arange(b + 1), torch.arange(h - b, h)]).cuda()
         z = z[:, :, rows, : b + 1]
-    args = (z, amp, ratio, b, mode == "full", mode == "delta")
-    before = ram_mix.launches
+    args = (z, amp, ratio, b, mode == "full", mode == "delta", 1 if variant == "misaligned" else 0)
+    path = {"full": "full_vec", "band": "strided", "delta": "delta_flat"}[mode]
+    if variant == "misaligned" and mode != "delta":
+        path = "strided"
+    before, before_path = ram_mix.launches, ram_mix.launches_by_path[path]
     got = _mix(ram_mix.mix_spectrum, *args)
     want = _mix(ram_mix.mix_spectrum_plain, *args)
     torch.cuda.synchronize()
     assert ram_mix.launches == before + 1
+    assert ram_mix.launches_by_path[path] == before_path + 1
     # the same IEEE operations in the same order: equal to a rounding of the largest value
     assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    if variant == "tiny":
+        assert torch.equal(got, want)
 
 
 def test_ram_functions_run_through_the_kernel(gen):
