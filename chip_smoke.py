@@ -4,7 +4,9 @@
 Phases, one JSON line each (any failure raises and exits non-zero, with no
 result line):
   device      the card, its power limit, the TF32 settings
-  build       K1 (csrc/ram_mix.cu) compiled with nvcc for sm_90a
+  build       K1 (csrc/ram_mix.cu) compiled with nvcc for sm_90a and the
+              host post-processing library (native/postproc.cpp) with g++,
+              the two started together
   kernel      K1 against its plain PyTorch version on the card, in full,
               band and delta modes, at the main path's shapes and at
               (65, 63), plus the zero-amplitude and ratio-1 cases, a
@@ -24,10 +26,26 @@ result line):
               set: the defaults (banded-DFT RAM, K1 band-delta mode),
               ram_use_pallas (K1 full mode) and no_ram_banded_dft (K1 band
               mode); K1's launch count is read around each run and must equal
-              its step count, all through the mode's own code path
+              its step count, all through the mode's own code path.  Each
+              run evaluates at each epoch's end and at its last step, on an
+              in-memory test split of target domain 0 (50 images at 512^2,
+              test batch 8: six batches and a tail of 2); the last eval's
+              seconds, forward ms per batch (CUDA-synchronised), readback
+              ms, host ms per image, Dice, the best file (which must load
+              strictly) and the CSV rows; eval adds no K1 launch
+  eval_cli    the eval CLI's path on the default run's final_model.pth: the
+              loader, BN-adapted prediction, eval_fundus with distances over
+              the same split; the six metrics, the timings, the host's share
+              of the eval's wall time, and where the forward's device time
+              goes (torch.profiler over four batches of 8)
   profile     where a default step's device time goes (torch.profiler)
   step_parity one step with K1 and the same step with the plain mix, from
               the same state and draws (TF32 off, deterministic cuDNN)
+  eval_parity the same weights and 16 test images on the card and on the
+              CPU (TF32 off, deterministic cuDNN): probabilities within 1e-4
+              in both BN modes, tail batch included, Dice within 1e-3, and
+              the host library's post-processing and distances bit-equal to
+              their scipy plain versions on the eval's own maps
 Then the card line from nvidia-smi, the kernels line, and the result line.
 Run artefacts go to chiprun_out/chip_smoke/.
 """
@@ -40,6 +58,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -53,6 +72,7 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 
 B, C, S = 16, 3, 256  # main path: batch 16, RGB, 256^2
 STEPS = {"default": 30, "ram_use_pallas": 10, "no_ram_banded_dft": 10}
+EVAL_N, EVAL_SIZE = 50, 512  # in-memory test split: images, original size
 
 
 MAIN_PATHS = {"default": "delta_flat", "ram_use_pallas": "full_vec", "no_ram_banded_dft": "strided"}
@@ -375,9 +395,24 @@ def main_path_config(TrainConfig, name, run_dir):
     ).resolve()
 
 
-def phase_main_path(torch, np, ram_mix, arrays):
+def eval_fields(res_timing, num):
+    """The eval's split by phase, from `FundusEvalResult.timing`."""
+    parts = ("dequantise", "resize", "postprocess", "save", "dice", "distances")
+    host = sum(res_timing[k] for k in parts)
+    return dict(
+        eval_s=res_timing["wall"], eval_batches=res_timing["batches"],
+        forward_ms_per_batch=1e3 * res_timing["forward"] / res_timing["batches"],
+        readback_ms=1e3 * res_timing["readback"], load_ms=1e3 * res_timing["load"],
+        host_ms_per_image=1e3 * host / num,
+        host_ms_per_image_by_part={k: 1e3 * res_timing[k] / num for k in parts},
+        host_share=host / res_timing["wall"],
+    )
+
+
+def phase_main_path(torch, np, ram_mix, arrays, testset):
     from ramdsir_tpu_torch.config import TrainConfig
     from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
+    from ramdsir_tpu_torch.train.checkpoint import load_torch_checkpoint
     from ramdsir_tpu_torch.train.loop import fit, tf32_settings
     from ramdsir_tpu_torch.train.state import build_models
 
@@ -396,7 +431,7 @@ def phase_main_path(torch, np, ram_mix, arrays):
         ram_mix.launches = 0
         ram_mix.launches_by_path.update(dict.fromkeys(ram_mix.launches_by_path, 0))
         t0 = time.perf_counter()
-        summary = fit(cfg, max_steps=steps, pipeline=pipe)
+        summary = fit(cfg, max_steps=steps, pipeline=pipe, testset=testset)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ram_mix.launches
@@ -409,16 +444,29 @@ def phase_main_path(torch, np, ram_mix, arrays):
         payload = torch.load(summary["final_checkpoint"], map_location="cpu")
         for mname, module in build_models(cfg).items():
             module.load_state_dict(payload[f"{mname}_state_dict"], strict=True)
+        # the keep-best file loads strictly into freshly built modules
+        load_torch_checkpoint(summary["best_checkpoint"], build_models(cfg))
+        csv_rows = open(os.path.join(run_dir, f"{cfg.test_domain_idx}_val_log.csv")).read().splitlines()
+        evals = [r["eval/avg_dice"] for r in rows if "eval/avg_dice" in r]
         entry = dict(
             run=name, steps=summary["steps"], k1_launches=launches, k1_paths=paths, losses_finite=finite,
             first_loss=rows[0]["loss/loss"], last_loss=[r for r in rows if "loss/loss" in r][-1]["loss/loss"],
             median_step_ms=summary["median_step_ms"], images_per_sec=summary["images_per_sec"],
             peak_memory_bytes=peak, wall_s=wall, batch=sum(cfg.batch_size_list), image_size=S,
-            tf32=tf32_settings(),
+            tf32=tf32_settings(), cup_dice=summary["cup_dice"], disc_dice=summary["disc_dice"],
+            best=summary["best"], best_file=os.path.basename(summary["best_checkpoint"]),
+            csv_rows=len(csv_rows), evals=len(evals), eval_images=len(testset), eval_original_size=EVAL_SIZE,
+            test_batch=cfg.test_batch_size, **eval_fields(summary["eval_timing"], len(testset)),
         )
         emit("main_path", **entry)
         if not finite:
             raise SystemExit(f"main path {name}: non-finite or missing losses")
+        expected_evals = (steps - 1) // len(pipe) + 1  # one an epoch, and one at the last step
+        if len(csv_rows) != expected_evals or len(evals) != expected_evals:
+            raise SystemExit(f"main path {name}: {len(csv_rows)} CSV rows, {len(evals)} evals, expected {expected_evals}")
+        dice_ok = all(0.0 <= summary[k] <= 1.0 for k in ("cup_dice", "disc_dice"))
+        if not dice_ok or summary["eval_timing"]["batches"] != -(-len(testset) // cfg.test_batch_size):
+            raise SystemExit(f"main path {name}: eval gave {summary['cup_dice']}, {summary['disc_dice']}")
         if summary["steps"] != steps or launches != steps:
             raise SystemExit(f"main path {name}: {summary['steps']} steps, {launches} K1 launches, expected {steps}")
         if paths != {MAIN_PATHS[name]: steps}:
@@ -481,6 +529,101 @@ def phase_step_parity(torch, np, ram_mix, arrays):
     return results
 
 
+def eval_models(torch, path, device):
+    """The eval CLI's modules (encoder, seg decoder) from a .pth, on device."""
+    from ramdsir_tpu_torch.config import TrainConfig
+    from ramdsir_tpu_torch.train.checkpoint import load_torch_checkpoint
+    from ramdsir_tpu_torch.train.state import build_models
+
+    cfg = TrainConfig(dataset="fundus", rec=False, ram=False, image_size=S, device=device).resolve()
+    models = build_models(cfg)
+    load_torch_checkpoint(path, models)
+    for m in models.values():
+        m.to(device)
+    return cfg, models
+
+
+def phase_eval_cli(torch, np, testset):
+    """cli/test_fundus_slice.py's path on the default run's final model (the
+    CLI itself reads PNGs, which this machine cannot decode)."""
+    from ramdsir_tpu_torch.train.evaluate import eval_fundus
+    from ramdsir_tpu_torch.train.steps import make_predict_fn
+
+    path = os.path.join(OUT, "default", "final_model.pth")
+    cfg, models = eval_models(torch, path, "cuda")
+    predict = make_predict_fn(cfg, models, bn_adapt=True)
+    res = eval_fundus(predict, testset, 0, batch_size=8, image_size=S, with_distances=True)
+    torch.cuda.synchronize()
+    six = {k: getattr(res, k) for k in ("cup_dice", "disc_dice", "hd_oc", "hd_od", "asd_oc", "asd_od")}
+    forward = profile_eval_forward(torch, predict, np.stack([x["img"] for x in testset]))
+    emit("eval_cli", model_file=os.path.relpath(path, REPO), bn_adapt=True, with_distances=True, num=res.num,
+         test_batch=8, eval_original_size=EVAL_SIZE, **six, **eval_fields(res.timing, res.num),
+         forward_profile=forward)
+    finite = all(np.isfinite(v) for v in six.values())
+    if res.num != len(testset) or not finite or not all(0.0 <= six[k] <= 1.0 for k in ("cup_dice", "disc_dice")):
+        raise SystemExit(f"eval_cli: {res.num} images, metrics {six}")
+
+
+def phase_eval_parity(torch, np, testset, n=16, batch=7):
+    """The default run's final weights on the card and on the CPU over the
+    first n test images in batches of `batch` (a tail of n % batch)."""
+    from ramdsir_tpu_torch.ops import metrics, postprocess
+    from ramdsir_tpu_torch.ops.resize import bilinear_resize_chw
+    from ramdsir_tpu_torch.train.evaluate import _q16, eval_fundus
+    from ramdsir_tpu_torch.train.steps import make_predict_fn
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    path = os.path.join(OUT, "default", "final_model.pth")
+    models = {dev: eval_models(torch, path, dev) for dev in ("cuda", "cpu")}
+    samples = testset[:n]
+    imgs = np.stack([x["img"] for x in samples])
+    entry = dict(images=n, batch=batch, tail=n % batch, prob_tol=1e-4, dice_tol=1e-3)
+    maps = []  # (probabilities on the card, target) for the host checks
+    for bn_adapt in (False, True):
+        preds = {dev: make_predict_fn(cfg, m, bn_adapt=bn_adapt) for dev, (cfg, m) in models.items()}
+        err = 0.0
+        for lo in range(0, n, batch):
+            got, want = preds["cuda"](imgs[lo : lo + batch]), preds["cpu"](imgs[lo : lo + batch])
+            err = max(err, float((got.cpu() - want).abs().max()))
+            if bn_adapt:
+                q = _q16(got).cpu().numpy().astype(np.float32) / 65535.0
+                maps += [(q[i], samples[lo + i]["mask_orig"]) for i in range(q.shape[0])]
+        res = {dev: eval_fundus(p, samples, 0, batch_size=batch, image_size=S) for dev, p in preds.items()}
+        dice_err = max(abs(res["cuda"].cup_dice - res["cpu"].cup_dice), abs(res["cuda"].disc_dice - res["cpu"].disc_dice))
+        tag = "bn_adapt" if bn_adapt else "running_stats"
+        entry[tag] = dict(prob_max_abs=err, dice_max_abs=dice_err, cup_dice=res["cuda"].cup_dice,
+                          disc_dice=res["cuda"].disc_dice)
+        if err > 1e-4 or dice_err > 1e-3:
+            raise SystemExit(f"eval_parity {tag}: probabilities differ by {err}, Dice by {dice_err}")
+    # the host library against its scipy plain versions on those maps
+    masks = distances = 0
+    for prob, target in maps:
+        full = bilinear_resize_chw(prob, target.shape[0], target.shape[1])
+        tgt = target.transpose(2, 0, 1).astype(bool)
+        for threshold in (0.75, 0.5):
+            ours = postprocess.postprocessing(full, threshold=threshold, dataset="fundus")
+            plain = postprocess.postprocessing(full, threshold=threshold, dataset="fundus",
+                                               largest=postprocess.get_largest_fillhole_plain)
+            if not np.array_equal(ours, plain):
+                raise SystemExit("eval_parity: post-processing differs from its plain version")
+            masks += 2
+            for ch in range(2):
+                p = ours[ch].astype(bool)
+                if not (p.any() and tgt[ch].any()):
+                    continue
+                for a, b in ((p, tgt[ch]), (tgt[ch], p)):
+                    if not np.array_equal(metrics.surface_distances(a, b), metrics.surface_distances_plain(a, b)):
+                        raise SystemExit("eval_parity: surface distances differ from their plain version")
+                    distances += 1
+    entry.update(postprocess_masks_bit_equal=masks, distance_sets_bit_equal=distances)
+    emit("eval_parity", **entry)
+    if not distances:
+        raise SystemExit("eval_parity: every predicted mask was empty; no distance was compared")
+
+
 KERNEL_GROUPS = [  # (group, substrings of CUDA kernel names), first match wins
     ("K1 ram_mix", ("mix_full_vec_kernel", "mix_delta_flat_kernel", "mix_strided_kernel")),
     ("fft", ("fft", "radix", "regular_fft", "vector_fft")),
@@ -496,7 +639,6 @@ KERNEL_GROUPS = [  # (group, substrings of CUDA kernel names), first match wins
 def phase_profile(torch, ram_mix, arrays, steps=5, warmup=3):
     """Where a default step's device time goes: torch.profiler over `steps`
     steps after `warmup`, each step synchronised as `fit` does."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ramdsir_tpu_torch.config import TrainConfig
@@ -527,6 +669,15 @@ def phase_profile(torch, ram_mix, arrays, steps=5, warmup=3):
             one()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    emit("profile", run="default", steps=steps, step_ms=wall_us / steps / 1e3,
+         **device_breakdown(prof, wall_us, steps, "step"))
+
+
+def device_breakdown(prof, wall_us, count, unit):
+    """Device busy time, idle share, launches and time by kernel group per
+    `unit` from a torch.profiler run over `count` units in `wall_us`."""
+    from torch.autograd import DeviceType
+
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     per_name, per_group = {}, {}
     for e in kernels:
@@ -536,32 +687,62 @@ def phase_profile(torch, ram_mix, arrays, steps=5, warmup=3):
         per_group[group] = per_group.get(group, 0.0) + us
     busy_us = sum(per_name.values())
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:12]
-    emit(
-        "profile", run="default", steps=steps, step_ms=wall_us / steps / 1e3,
-        device_busy_ms_per_step=busy_us / steps / 1e3,
-        device_idle_share=(1.0 - busy_us / wall_us) if kernels else "not measured",
-        kernel_launches_per_step=len(kernels) / steps,
-        ms_per_step_by_group={g: us / steps / 1e3 for g, us in sorted(per_group.items(), key=lambda kv: -kv[1])},
-        top_kernels_ms_per_step=[[name[:80], us / steps / 1e3] for name, us in top],
-    )
+    return {
+        f"device_busy_ms_per_{unit}": busy_us / count / 1e3,
+        "device_idle_share": (1.0 - busy_us / wall_us) if kernels else "not measured",
+        f"kernel_launches_per_{unit}": len(kernels) / count,
+        f"ms_per_{unit}_by_group": {g: us / count / 1e3 for g, us in sorted(per_group.items(), key=lambda kv: -kv[1])},
+        f"top_kernels_ms_per_{unit}": [[name[:80], us / count / 1e3] for name, us in top],
+    }
+
+
+def profile_eval_forward(torch, predict, imgs, batch=8, reps=4):
+    """Where the eval forward's time goes: torch.profiler over `reps` full
+    batches, dispatched as eval_fundus does (sigmoid and uint16 quantisation
+    included), one synchronise at the end."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ramdsir_tpu_torch.train.evaluate import _q16
+
+    for _ in range(2):
+        _q16(predict(imgs[:batch]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(reps):
+            _q16(predict(imgs[i * batch : (i + 1) * batch]))
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    return dict(batches=reps, batch=batch, ms_per_batch=wall_us / reps / 1e3,
+                **device_breakdown(prof, wall_us, reps, "batch"))
 
 
 # --- build -------------------------------------------------------------------
 
 
-def phase_build(ram_mix):
-    """Build the library and, beside it, ask ptxas for the kernel's
-    registers and spills (two nvcc processes, started together)."""
+def timed_call(fn):
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def phase_build(ram_mix, native):
+    """Build K1's library and the host library and, beside them, ask ptxas
+    for the kernel's registers and spills (two nvcc and one g++ process,
+    started together)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(2) as pool:
         ptxas = subprocess.Popen(
             [ram_mix._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
              "-Xptxas", "-v", "-cubin", "-o", os.path.join(tmp, "ram_mix.cubin"), ram_mix.SOURCE],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         try:
-            path = ram_mix.build_library()
+            k1 = pool.submit(timed_call, ram_mix.build_library)
+            host = pool.submit(timed_call, native.build_library)
+            (path, k1_s), (host_path, host_s) = k1.result(), host.result()
             ram_mix._library()
+            native.library()
         finally:
             ptxas_out, _ = ptxas.communicate(timeout=600)
     # ptxas prints each kernel's name, then its spills, then its registers
@@ -573,8 +754,9 @@ def phase_build(ram_mix):
             kernel += "<full>" if "ILb1E" in ln else "<delta>" if "ILb0ELb1E" in ln else "<band>" if "ILb0ELb0E" in ln else ""
         elif kernel and ("registers" in ln or "spill" in ln):
             info.setdefault(kernel, []).append(ln.split(":", 1)[-1].strip())
-    emit("build", library=os.path.relpath(path, REPO), seconds=time.perf_counter() - t0,
-         nvcc_flags=list(ram_mix.NVCC_FLAGS), ptxas=info)
+    emit("build", library=os.path.relpath(path, REPO), seconds=time.perf_counter() - t0, k1_seconds=k1_s,
+         nvcc_flags=list(ram_mix.NVCC_FLAGS), ptxas=info, host_library=os.path.relpath(host_path, REPO),
+         host_library_seconds=host_s, host_flags=[native.CXX, *native.CXX_FLAGS])
 
 
 def main():
@@ -590,11 +772,6 @@ def main():
         print("chip_smoke: run it from a checkout of the repository (ramdsir_tpu_torch/ is missing)", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    import numpy as np
-
-    from ramdsir_tpu_torch.data.synthetic import fundus_arrays
-    from ramdsir_tpu_torch.ops import ram as tram
-    from ramdsir_tpu_torch.ops import ram_mix
     from ramdsir_tpu_torch.train.loop import tf32_settings
 
     os.makedirs(OUT, exist_ok=True)
@@ -604,16 +781,38 @@ def main():
     emit("device", nvidia_smi=card, name=name, count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, peak_bytes_per_s=bw, tf32=tf32_settings())
 
-    phase_build(ram_mix)
+    try:
+        return run_phases(torch, card, name, bw)
+    finally:
+        # the checkpoints are ~10 MB each: keep the logs, drop the weights
+        for root, _, files in os.walk(OUT):
+            for f in files:
+                if f.endswith(".pth"):
+                    os.remove(os.path.join(root, f))
+
+
+def run_phases(torch, card, name, bw):
+    import numpy as np
+
+    from ramdsir_tpu_torch import native
+    from ramdsir_tpu_torch.data.synthetic import fundus_arrays, fundus_test_samples
+    from ramdsir_tpu_torch.ops import ram as tram
+    from ramdsir_tpu_torch.ops import ram_mix
+
+    phase_build(ram_mix, native)
     kernels = phase_kernel(torch, tram, ram_mix, bw)
     phase_ram_oracle(torch, tram, np)
 
     t0 = time.perf_counter()
     arrays = fundus_arrays(per_domain_train=64, size=S, seed=0)  # 4 domains x 64 images, as bench.py:68
-    emit("data", domains=len(arrays), per_domain=64, size=S, seconds=time.perf_counter() - t0)
-    runs = phase_main_path(torch, np, ram_mix, arrays)
+    testset = fundus_test_samples(num=EVAL_N, size=EVAL_SIZE, image_size=S, seed=1)
+    emit("data", domains=len(arrays), per_domain=64, size=S, test_images=EVAL_N, test_original_size=EVAL_SIZE,
+         seconds=time.perf_counter() - t0)
+    runs = phase_main_path(torch, np, ram_mix, arrays, testset)
+    phase_eval_cli(torch, np, testset)
     phase_profile(torch, ram_mix, arrays)
     phase_step_parity(torch, np, ram_mix, arrays)
+    phase_eval_parity(torch, np, testset)
 
     modes = [("band,delta", "delta", "default"), ("full", "full", "ram_use_pallas"), ("band", "band", "no_ram_banded_dft")]
     line = {"kernels": []}

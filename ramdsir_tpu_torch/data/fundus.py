@@ -1,9 +1,9 @@
 """Reading the fundus PNG tree (the parts of `ramdsir_tpu/data/fundus.py`
-and `data/transforms.py` the device pipeline needs).
+and `data/transforms.py` the device pipeline and eval need).
 
 Layout: `base_dir/DomainX_train.list` manifests with lines
 "DomainX/rel_img DomainX/rel_mask" relative to base_dir, and per-domain
-`base_dir/DomainX/train.list` donor manifests relative to base_dir/DomainX.
+`base_dir/DomainX/{train,test}.list` manifests relative to base_dir/DomainX.
 PIL is imported inside the functions that decode.
 """
 from __future__ import annotations
@@ -49,6 +49,40 @@ def fundus_multilabel(gray: np.ndarray) -> np.ndarray:
     mask[cls == 1] = [0, 1]
     mask[cls == 2] = [1, 1]
     return mask
+
+
+class FundusDataset:
+    """One domain's test split (`base_dir/DomainX/test.list`, paths relative
+    to base_dir/DomainX), as the JAX package's `FundusDataset(split="test")`
+    with its eval transform: each item holds `img` (S, S, 3) uint8 resized
+    bilinear and `mask` (S, S) uint8 gray resized nearest (S = image_size),
+    `mask_orig` (H, W, 2) uint8 [cup, disc] at the original size, and `id`,
+    the list line."""
+
+    def __init__(self, base_dir: str, domain_idx: int, image_size: int, num: Optional[int] = None):
+        self.base_dir = base_dir
+        self.domain = FUNDUS_DOMAINS[domain_idx]
+        self.image_size = image_size
+        self.id_path = _read_list(os.path.join(base_dir, self.domain, "test.list"))
+        if num is not None:
+            self.id_path = self.id_path[:num]
+
+    def __len__(self) -> int:
+        return len(self.id_path)
+
+    def __getitem__(self, index: int):
+        from PIL import Image
+
+        img_rel, mask_rel = self.id_path[index].split(" ")[:2]
+        img = Image.open(os.path.join(self.base_dir, self.domain, img_rel)).convert("RGB")
+        mask = Image.open(os.path.join(self.base_dir, self.domain, mask_rel)).convert("L")
+        size = (self.image_size, self.image_size)
+        return {
+            "img": np.asarray(img.resize(size, Image.BILINEAR), np.uint8),
+            "mask": np.asarray(mask.resize(size, Image.NEAREST), np.uint8),
+            "mask_orig": fundus_multilabel(np.array(mask)).astype(np.uint8),
+            "id": self.id_path[index],
+        }
 
 
 class FundusMultiDataset:

@@ -1,18 +1,22 @@
 """Synthetic fundus data for smoke runs and tests (PyTorch port of
 `ramdsir_tpu/data/synthetic.py:20-64`).
 
-`fundus_arrays` builds the stacked arrays in memory and writes nothing;
-`make_fundus_tree` writes the PNG tree + .list manifests the fundus reader
-expects (it needs PIL, imported inside).
+`fundus_arrays` builds the stacked train arrays and `fundus_test_samples` a
+test split in memory, writing nothing; `make_fundus_tree` writes the PNG
+tree + .list manifests the fundus reader expects (it needs PIL, imported
+inside).
 """
 from __future__ import annotations
 
 import os
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from ramdsir_tpu_torch.config import FUNDUS_DOMAINS
+from ramdsir_tpu_torch.data.fundus import fundus_multilabel
 
 
 def _fundus_pair(rng: np.random.Generator, size: int):
@@ -48,6 +52,31 @@ def fundus_arrays(
             "masks": np.stack([p[1] for p in pairs]),
         }
     return out
+
+
+def fundus_test_samples(
+    num: int = 50, size: int = 512, image_size: int = 256, seed: int = 0
+) -> List[Dict]:
+    """An in-memory test split of one domain, without PIL: `num` samples
+    {img, mask, mask_orig, id} as `data.fundus.FundusDataset` gives them,
+    drawn by `_fundus_pair` at size x size.  `img` is resized to image_size
+    by torch's antialiased bilinear resize (PIL's bilinear filter is
+    antialiased too, the values differ slightly), `mask` by PIL's nearest
+    rule."""
+    rng = np.random.default_rng(seed)
+    near = np.floor((np.arange(image_size) + 0.5) * size / image_size).astype(np.int64)
+    samples = []
+    for i in range(num):
+        img, mask = _fundus_pair(rng, size)
+        x = torch.from_numpy(img).permute(2, 0, 1)[None].float()
+        small = F.interpolate(x, size=(image_size, image_size), mode="bilinear", align_corners=False, antialias=True)
+        samples.append({
+            "img": small[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy(),
+            "mask": mask[near][:, near],
+            "mask_orig": fundus_multilabel(mask).astype(np.uint8),
+            "id": f"test/image/{i:03d}.png test/mask/{i:03d}.png",
+        })
+    return samples
 
 
 def make_fundus_tree(

@@ -14,10 +14,16 @@ forwards.
 
 n_valid: only the first n_valid rows (of each half under dual) are real;
 statistics come from them alone, every row is normalised.
+
+`batch_statistics(*modules)`: within it, every BatchNorm of the modules
+normalises with the batch's own statistics (from the first n_valid rows)
+whatever its train flag, and updates no running statistic: the eval CLIs'
+BN adaptation, which leaves the modules as it found them.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+import contextlib
+from typing import Iterator, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -38,15 +44,16 @@ def _train_norm(
     n_stats: Optional[int] = None,
 ) -> torch.Tensor:
     """Train-mode BN of x (N, C, H, W) with statistics from x[:n_stats];
-    updates the running statistics in place."""
+    updates the running statistics in place unless they are None."""
     if n_stats is None or n_stats >= x.shape[0]:
         return F.batch_norm(x, running_mean, running_var, weight, bias, True, momentum, eps)
     real = x[:n_stats]
     var, mean = torch.var_mean(real, dim=(0, 2, 3), correction=0)
     n = real.numel() / real.shape[1]
-    with torch.no_grad():
-        running_mean.mul_(1.0 - momentum).add_(mean, alpha=momentum)
-        running_var.mul_(1.0 - momentum).add_(var * (n / max(n - 1.0, 1.0)), alpha=momentum)
+    if running_mean is not None:
+        with torch.no_grad():
+            running_mean.mul_(1.0 - momentum).add_(mean, alpha=momentum)
+            running_var.mul_(1.0 - momentum).add_(var * (n / max(n - 1.0, 1.0)), alpha=momentum)
     scale = weight * torch.rsqrt(var + eps)
     return (x - mean[None, :, None, None]) * scale[None, :, None, None] + bias[None, :, None, None]
 
@@ -60,6 +67,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.batch_stats_only = False  # set by batch_statistics()
 
     def normalize_running(self, x: torch.Tensor) -> torch.Tensor:
         """Eval-mode normalisation with the running statistics."""
@@ -70,12 +78,29 @@ class BatchNorm(nn.Module):
     def forward(
         self, x: torch.Tensor, *, dual: bool = False, n_valid: Optional[int] = None
     ) -> torch.Tensor:
-        if not self.training:
+        if self.batch_stats_only:
+            args = (self.weight, self.bias, None, None, 0.0, self.eps)
+        elif not self.training:
             return self.normalize_running(x)
-        args = (self.weight, self.bias, self.running_mean, self.running_var, self.momentum, self.eps)
+        else:
+            args = (self.weight, self.bias, self.running_mean, self.running_var, self.momentum, self.eps)
         if dual:
             return torch.cat([_train_norm(h, *args, n_valid) for h in x.chunk(2)])
         return _train_norm(x, *args, n_valid)
+
+
+@contextlib.contextmanager
+def batch_statistics(*modules: nn.Module) -> Iterator[None]:
+    """Every BatchNorm of `modules` normalises with batch statistics and
+    updates nothing while the context is open (see the module docstring)."""
+    norms = [m for module in modules for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.batch_stats_only = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.batch_stats_only = False
 
 
 class DomainSpecificBatchNorm(nn.Module):

@@ -1,9 +1,11 @@
 """The training loop (PyTorch port of `ramdsir_tpu/train/loop.py:158-478`,
 fundus, one device, one step per dispatch).
 
-Eval is not ported yet: where the JAX `fit` evaluates (every `eval_every`
-epochs and at the end), this one prints that eval is not ported, and the
-summary carries "eval": "not_ported".
+Every `eval_every` epochs and at the end, `fit` evaluates on the target
+domain's test split (`train.evaluate.eval_fundus`, running statistics),
+appends the row to `{test_domain_idx}_val_log.csv`, logs `eval/avg_dice` and
+keeps the best checkpoint `model_<dice>.pth` (`train.checkpoint.BestKeeper`).
+Eval draws no random number and launches no RAM kernel.
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,8 +22,10 @@ import ramdsir_tpu_torch
 from ramdsir_tpu_torch.config import TrainConfig
 from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
 from ramdsir_tpu_torch.data.fundus import FundusMultiDataset
+from ramdsir_tpu_torch.train.checkpoint import BestKeeper
+from ramdsir_tpu_torch.train.evaluate import append_csv_log, eval_fundus
 from ramdsir_tpu_torch.train.state import init_state
-from ramdsir_tpu_torch.train.steps import check_supported, make_train_step
+from ramdsir_tpu_torch.train.steps import check_supported, make_predict_fn, make_train_step
 from ramdsir_tpu_torch.utils.device import resolve_device
 from ramdsir_tpu_torch.utils.logging import MetricsWriter
 from ramdsir_tpu_torch.utils.profiler import StepTimer
@@ -66,9 +70,11 @@ def fit(
     eval_every: int = 1,
     max_steps: Optional[int] = None,
     pipeline: Optional[DeviceFundusPipeline] = None,
+    testset: Optional[Sequence[Dict]] = None,
 ) -> Dict:
-    """Train on cfg.device; returns a summary dict.  `pipeline` replaces the
-    one read from cfg.data_root (an in-memory set, for smoke runs)."""
+    """Train on cfg.device; returns a summary dict.  `pipeline` and
+    `testset` replace the train set and the test split read from
+    cfg.data_root (in-memory sets, for smoke runs)."""
     cfg = cfg.resolve()
     check_supported(cfg)
     if not cfg.device_data:
@@ -92,8 +98,11 @@ def fit(
     train_step = make_train_step(
         cfg, total_iters, batch_size_list=pipeline.batch_sizes, device_data=pipeline.device_data
     )
+    predict = make_predict_fn(cfg, state.models, bn_adapt=False)
     writer = MetricsWriter(os.path.join(save_dir, "log"))
+    keeper = BestKeeper(save_dir)
     timer = StepTimer(device=device)
+    summary: Dict = {}
 
     step = 0
     done = False
@@ -116,8 +125,23 @@ def fit(
         if (epoch + 1) % eval_every == 0 or done:
             timer.mark()
             writer.flush()
+            with timer.paused():
+                res = eval_fundus(
+                    predict, cfg.data_root if testset is None else testset, cfg.test_domain_idx,
+                    batch_size=cfg.test_batch_size, image_size=cfg.image_size,
+                )
+                avg = res.avg_dice_pct
+                append_csv_log(
+                    os.path.join(save_dir, f"{cfg.test_domain_idx}_val_log.csv"),
+                    ["batch-size: ", cfg.test_batch_size, epoch,
+                     "cup dice coefficence: ", res.cup_dice,
+                     "disc dice coefficence: ", res.disc_dice],
+                )
+                summary.update(cup_dice=res.cup_dice, disc_dice=res.disc_dice, eval_timing=res.timing)
+                writer.add_scalars({"eval/avg_dice": avg}, step)
+                keeper.update(avg, state.models)
             print(
-                f"epoch {epoch}: eval is not ported yet (ROADMAP.md: Eval) | "
+                f"epoch {epoch}: eval avg dice {avg:.2f} | best {keeper.best:.2f} | "
                 f"{timer.items_per_sec:.1f} img/s | epoch {time.time() - t_ep:.1f}s",
                 flush=True,
             )
@@ -127,10 +151,9 @@ def fit(
     final_path = os.path.join(save_dir, "final_model.pth")
     export_torch_checkpoint(final_path, state.models)
     writer.close()
-    return {
-        "steps": step,
-        "images_per_sec": timer.items_per_sec,
-        "median_step_ms": timer.median_step_ms,
-        "final_checkpoint": final_path,
-        "eval": "not_ported",
-    }
+    summary.update(
+        best=keeper.best, best_checkpoint=keeper.best_path, steps=step,
+        images_per_sec=timer.items_per_sec, median_step_ms=timer.median_step_ms,
+        final_checkpoint=final_path,
+    )
+    return summary

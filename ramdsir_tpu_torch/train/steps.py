@@ -1,4 +1,5 @@
-"""The fundus train step (PyTorch port of `ramdsir_tpu/train/steps.py:50-436`).
+"""The fundus train step and the predictor (PyTorch port of
+`ramdsir_tpu/train/steps.py:50-436` and `:509-553`).
 
 One call covers the reference's hot-loop iteration (code/train.py:223-331):
 RAM on the clean batch, one encoder + seg-decoder forward over the
@@ -24,6 +25,7 @@ import torch
 
 from ramdsir_tpu_torch.config import CONSISTENCY_WEIGHT, POLY_POWER, TrainConfig
 from ramdsir_tpu_torch.data.device_pipeline import gather_and_augment, sample_crop_draws
+from ramdsir_tpu_torch.models.norm import batch_statistics
 from ramdsir_tpu_torch.ops.losses import bce_with_logits_loss, dice_loss, kd_loss, mse_loss
 from ramdsir_tpu_torch.ops.ram import (
     ram_augment_fundus,
@@ -210,3 +212,52 @@ def make_train_step(
         return metrics
 
     return train_step
+
+
+def make_predict_fn(cfg: TrainConfig, models: Mapping[str, torch.nn.Module], bn_adapt: bool = False) -> Callable:
+    """Build `predict(img, n_valid=None) -> probabilities`, the counterpart of
+    the JAX package's `make_predict_fn` (`train/steps.py:509-553`).
+
+    img: (B, H, W, C) images in [0, 255] (numpy or a tensor, any real dtype);
+    returns (B, num_classes, H, W) float32 probabilities on the models'
+    device, NCHW (sigmoid for fundus, softmax over classes otherwise), from
+    the encoder and seg decoder under no_grad.
+
+    bn_adapt=False normalises with the running statistics.  bn_adapt=True is
+    the eval CLIs' BN adaptation: every norm uses the test batch's own
+    statistics; no running statistic and no train flag changes, so `fit`
+    trains on after an eval exactly as before it.  The port runs a tail
+    batch as it is; n_valid (the JAX package pads to one compiled shape and
+    passes the real row count) is accepted for parity: with it, the batch
+    statistics come from the first n_valid rows.
+    """
+    cfg = cfg.resolve()
+    if cfg.predict_dtype != "float32":
+        raise NotImplementedError(
+            f"predict_dtype {cfg.predict_dtype!r} is not ported yet (ROADMAP.md: bf16 autocast)"
+        )
+    is_fundus = cfg.dataset == "fundus"
+    enc, dec = models["encoder"], models["seg_decoder"]
+
+    def predict(img, n_valid: Optional[int] = None) -> torch.Tensor:
+        device = next(enc.parameters()).device
+        x = torch.as_tensor(img).to(device=device, dtype=torch.float32).permute(0, 3, 1, 2)
+        if is_fundus:
+            x = x / 127.5 - 1.0
+        with torch.no_grad():
+            if bn_adapt:
+                with batch_statistics(enc, dec):
+                    logits = dec(enc(x, n_valid=n_valid), n_valid=n_valid)
+            else:
+                training = {m: m.training for m in (enc, dec)}
+                enc.eval(), dec.eval()
+                try:
+                    logits = dec(enc(x))
+                finally:
+                    for m, flag in training.items():
+                        m.train(flag)
+        if is_fundus:
+            return torch.sigmoid(logits)
+        return torch.softmax(logits, dim=1)
+
+    return predict

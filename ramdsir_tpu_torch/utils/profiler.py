@@ -1,9 +1,10 @@
 """Step timing and throughput (PyTorch port of `ramdsir_tpu/utils/profiler.py:15-71`)."""
 from __future__ import annotations
 
+import contextlib
 import statistics
 import time
-from typing import List, Optional, Union
+from typing import Iterator, List, Optional, Union
 
 import torch
 
@@ -48,6 +49,20 @@ class StepTimer:
         if self._t0 and self._dirty:
             self._last = time.perf_counter()
         self._dirty = False
+
+    @contextlib.contextmanager
+    def paused(self) -> Iterator[None]:
+        """Time spent inside (eval, checkpoints) counts in neither the
+        throughput window nor the next step's time."""
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            gap = time.perf_counter() - t
+            if self._t0 is not None:
+                self._t0 += gap
+            if self._last is not None:
+                self._last += gap
 
     @property
     def elapsed(self) -> float:

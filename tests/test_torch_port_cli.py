@@ -1,6 +1,9 @@
-"""The port's train CLI on the CPU, its import hygiene, and its refusals."""
+"""The port's train and eval CLIs on the CPU, its import hygiene, and its
+refusals."""
+import ast
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -21,25 +24,39 @@ def _env():
     return env
 
 
-def test_cli_drive_on_cpu(tmp_path):
+@pytest.fixture(scope="module")
+def trained_run(tmp_path_factory):
     """The verify drive with the module swapped: a tiny synthetic tree, two
-    steps; metrics.jsonl, run_config.json and a reference-format .pth that
-    the JAX package's import_torch_checkpoint loads."""
+    steps, then the end-of-training eval on target domain 0."""
     from ramdsir_tpu_torch.data.synthetic import make_fundus_tree
 
-    make_fundus_tree(str(tmp_path / "data"), per_domain_train=8, per_domain_test=1, size=32)
+    tmp_path = tmp_path_factory.mktemp("drive")
+    make_fundus_tree(str(tmp_path / "data"), per_domain_train=8, per_domain_test=3, size=40)
     run = tmp_path / "run"
     proc = subprocess.run(
         [sys.executable, "-m", "ramdsir_tpu_torch.cli.train", "--device", "cpu",
          "--data_root", str(tmp_path / "data"), "--dataset", "fundus",
          "--domain_idxs", "1,2,3", "--test_domain_idx", "0", "--ram", "--rec",
          "--is_out_domain", "--consistency", "--consistency_type", "kd",
-         "--save_path", str(run), "--image_size", "32", "--epochs", "1", "--max_steps", "2"],
+         "--save_path", str(run), "--image_size", "32", "--epochs", "1", "--max_steps", "2",
+         "--test_batch_size", "2"],
         capture_output=True, text=True, env=_env(), timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "eval is not ported yet" in proc.stdout
-    assert "'eval': 'not_ported'" in proc.stdout
+    return tmp_path, proc
+
+
+def test_cli_drive_on_cpu(trained_run):
+    """metrics.jsonl, run_config.json, the eval's line, CSV row and keep-best
+    file, and reference-format .pth files that the port and the JAX
+    package's import_torch_checkpoint load."""
+    tmp_path, proc = trained_run
+    run = tmp_path / "run"
+    assert re.search(r"epoch 0: eval avg dice [0-9.]+ \| best [0-9.]+", proc.stdout), proc.stdout
+    summary = ast.literal_eval(proc.stdout.strip().splitlines()[-1])
+    assert {"cup_dice", "disc_dice", "best"} <= set(summary) and "eval" not in summary
+    assert 0.0 <= summary["cup_dice"] <= 1.0 and 0.0 <= summary["disc_dice"] <= 1.0
+    assert summary["best"] == pytest.approx((summary["cup_dice"] + summary["disc_dice"]) * 50.0)
 
     rows = [json.loads(line) for line in (run / "log" / "metrics.jsonl").read_text().splitlines()]
     losses = [r for r in rows if "loss/loss" in r]
@@ -47,6 +64,13 @@ def test_cli_drive_on_cpu(tmp_path):
     for key in ("loss_bce_1", "loss_dice_1", "loss_bce_2", "loss_dice_2", "loss_consistency", "loss_rec"):
         assert all(np.isfinite(r[f"loss/{key}"]) for r in losses), key
     assert [r["step"] for r in rows if "lr" in r] == [0, 1]
+    assert [(r["step"], r["eval/avg_dice"]) for r in rows if "eval/avg_dice" in r] == [(2, summary["best"])]
+
+    csv_rows = (run / "0_val_log.csv").read_text().splitlines()
+    assert len(csv_rows) == 1
+    assert csv_rows[0].startswith("batch-size: ,2,0,cup dice coefficence: ,")
+    best = [f for f in os.listdir(run) if f.startswith("model_")]
+    assert best == ["model_%.2f.pth" % summary["best"]]
 
     cfg = json.loads((run / "run_config.json").read_text())
     assert cfg["config"]["device"] == "cpu" and cfg["config"]["image_size"] == 32
@@ -55,20 +79,62 @@ def test_cli_drive_on_cpu(tmp_path):
     from ramdsir_tpu.config import TrainConfig as JConfig
     from ramdsir_tpu.train.state import init_state as jinit_state
     from ramdsir_tpu.utils.torch_compat import import_torch_checkpoint
+    from ramdsir_tpu_torch.train.checkpoint import load_torch_checkpoint
+    from ramdsir_tpu_torch.train.state import build_models
 
     jcfg = JConfig(image_size=32, domain_idxs=(1, 2, 3), test_domain_idx=0).resolve()
     jstate, _ = jinit_state(jcfg, jax.random.PRNGKey(0))
-    loaded = import_torch_checkpoint(str(run / "final_model.pth"), jstate)
-    payload = torch.load(run / "final_model.pth", map_location="cpu")
-    assert set(payload) == {"encoder_state_dict", "seg_decoder_state_dict", "rec_decoder_state_dict"}
-    np.testing.assert_array_equal(
-        np.asarray(loaded.params["encoder"]["convd1"]["conv1"]["kernel"]),
-        payload["encoder_state_dict"]["convd1.conv1.weight"].numpy().transpose(2, 3, 1, 0),
+    for name in ("final_model.pth", best[0]):
+        loaded = import_torch_checkpoint(str(run / name), jstate)
+        payload = torch.load(run / name, map_location="cpu")
+        assert set(payload) == {"encoder_state_dict", "seg_decoder_state_dict", "rec_decoder_state_dict"}
+        np.testing.assert_array_equal(
+            np.asarray(loaded.params["encoder"]["convd1"]["conv1"]["kernel"]),
+            payload["encoder_state_dict"]["convd1.conv1.weight"].numpy().transpose(2, 3, 1, 0),
+        )
+        np.testing.assert_array_equal(
+            np.asarray(loaded.batch_stats["rec_decoder"]["convu4"]["bn1"]["DomainSpecificBatchNorm_0"]["mean"][2]),
+            payload["rec_decoder_state_dict"]["convu4.bn1.bns.2.running_mean"].numpy(),
+        )
+        models = build_models(TrainConfig(image_size=32, domain_idxs=(1, 2, 3), test_domain_idx=0).resolve())
+        load_torch_checkpoint(str(run / name), models)  # strict per module
+        for mname, m in models.items():
+            for k, v in m.state_dict().items():
+                assert torch.equal(v, payload[f"{mname}_state_dict"][k]), f"{mname}.{k}"
+
+
+def _six_metrics(stdout):
+    return [float(v) for v in re.findall(r"==>(?:val_cup_dice|val_disc_dice|average_hd_OC|average_hd_OD|"
+                                         r"average_asd_OC|average_asd_OD) : ([0-9.]+)", stdout)]
+
+
+def test_eval_cli_matches_jax_cli(trained_run, tmp_path, capsys):
+    """The port's eval CLI on the CPU against the JAX package's on the same
+    .pth and tree: the six metrics within 1e-6, the overlays, the CSV log."""
+    from ramdsir_tpu.cli.test_fundus_slice import main as jax_eval_main
+
+    data, run = trained_run[0] / "data", trained_run[0] / "run"
+    args = ["--model_file", str(run / "final_model.pth"), "--data_dir", str(data), "--datasetTest", "0",
+            "--batch_size", "2", "--image_size", "32", "--save_result"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "ramdsir_tpu_torch.cli.test_fundus_slice", "--device", "cpu",
+         "--test_prediction_save_path", str(tmp_path / "port"), *args],
+        capture_output=True, text=True, env=_env(), timeout=300,
     )
-    np.testing.assert_array_equal(
-        np.asarray(loaded.batch_stats["rec_decoder"]["convu4"]["bn1"]["DomainSpecificBatchNorm_0"]["mean"][2]),
-        payload["rec_decoder_state_dict"]["convu4.bn1.bns.2.running_mean"].numpy(),
-    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    printed = _six_metrics(proc.stdout)
+    assert len(printed) == 6, proc.stdout
+    want = jax_eval_main(["--test_prediction_save_path", str(tmp_path / "jax"), *args])
+    assert _six_metrics(capsys.readouterr().out) == printed  # the same printed lines
+    log = (tmp_path / "port" / "test0_log.csv").read_text().splitlines()
+    assert len(log) == 1
+    fields = log[0].split(",")
+    got = [float(fields[i]) for i in (4, 6, 8, 10, 12, 14)]
+    names = ("cup_dice", "disc_dice", "hd_oc", "hd_od", "asd_oc", "asd_od")
+    for name, g in zip(names, got):
+        assert abs(g - getattr(want, name)) <= 1e-6, name
+    assert sorted(os.listdir(tmp_path / "port" / "test0")) == sorted(os.listdir(tmp_path / "jax" / "test0"))
+    assert len(os.listdir(tmp_path / "port" / "test0")) == 3
 
 
 def test_port_imports_no_jax_and_no_reference_package():
@@ -82,13 +148,17 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ramdsir_tpu"))
-print(len(names), bad)
+print(names)
+print(bad)
 """
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=_env(), timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    count, bad = proc.stdout.strip().split(" ", 1)
-    assert int(count) >= 20, proc.stdout
-    assert bad == "[]", bad
+    names, bad = (ast.literal_eval(line) for line in proc.stdout.strip().splitlines()[-2:])
+    assert len(names) >= 30, names
+    for new in ("native", "ops.metrics", "ops.postprocess", "ops.resize", "data.loaders", "train.evaluate",
+                "train.checkpoint", "utils.viz", "cli.test_fundus_slice"):
+        assert f"ramdsir_tpu_torch.{new}" in names, new
+    assert bad == [], bad
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):
@@ -106,6 +176,31 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
         DeviceFundusPipeline.from_arrays(fundus_arrays(per_domain_train=8, size=16), (0, 1, 2), [2, 2, 2], 3)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_main(["--save_path", "unused", "--ram"])
+    from ramdsir_tpu_torch.cli.test_fundus_slice import main as eval_main
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        eval_main(["--model_file", "unused.pth", "--test_prediction_save_path", "unused"])
+
+
+def test_failing_compiler_raises(monkeypatch):
+    """A host library that does not build raises; nothing takes scipy in its
+    place."""
+    from ramdsir_tpu_torch import native
+    from ramdsir_tpu_torch.ops import metrics, postprocess
+
+    monkeypatch.setattr(native, "CXX_FLAGS", native.CXX_FLAGS + ("-fno-such-flag-here",))
+    monkeypatch.setattr(native, "_lib", None)
+    m = np.zeros((8, 8), bool)
+    m[2:5, 2:5] = True
+    with pytest.raises(RuntimeError, match="failed on"):
+        postprocess.get_largest_fillhole(m)
+    with pytest.raises(RuntimeError, match="failed on"):
+        postprocess.postprocessing(np.stack([m, m]).astype(np.float32), threshold=0.75)
+    with pytest.raises(RuntimeError, match="failed on"):
+        metrics.hd95(m, m)
+    monkeypatch.setattr(native, "CXX", "no-such-compiler-here")
+    with pytest.raises(RuntimeError, match="cannot run"):
+        postprocess.connectivity_region_analysis(m)
 
 
 @pytest.mark.parametrize(

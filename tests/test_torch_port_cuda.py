@@ -1,5 +1,5 @@
-"""K1 on the card against its plain version (marker `cuda`; skipped without
-a card).
+"""K1 on the card against its plain version, and the eval path on the card
+against the CPU (marker `cuda`; skipped without a card).
 
 These tests import neither JAX nor the JAX package, so they also run where
 JAX is not installed; the root conftest.py imports JAX, so run them there
@@ -113,3 +113,74 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(gen):
         ram_mix.mix_spectrum(zv[..., 0], zv[..., 1], amp.double(), ratio, 3, full=True)
     with pytest.raises(ValueError):
         ram_mix.mix_spectrum(zv[..., 0], zv[..., 1], amp[:, :, :5], ratio, 3, full=True)
+
+
+# --- eval on the card against the CPU ---------------------------------------------
+
+EVAL_S = 64  # image size of the eval card tests
+
+
+@pytest.fixture(scope="module")
+def eval_models():
+    """The same random weights on the card and on the CPU, float32 with TF32
+    off and deterministic cuDNN (restored afterwards)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the eval forward is compared between the card and the CPU")
+    from ramdsir_tpu_torch.config import TrainConfig
+    from ramdsir_tpu_torch.models.unet import init_weights
+    from ramdsir_tpu_torch.train.state import build_models
+
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cfg = TrainConfig(image_size=EVAL_S, rec=False, ram=False, device="cpu").resolve()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        models = build_models(cfg)
+        for m in models.values():
+            init_weights(m, torch.Generator().manual_seed(3))
+            m.to(dev).train()
+        out[dev] = models
+    yield cfg, out
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.deterministic = saved
+
+
+@pytest.mark.parametrize("bn_adapt", [False, True])
+def test_predict_on_card_matches_cpu(eval_models, bn_adapt):
+    """Probabilities within 1e-4 for a full batch and an unpadded tail of 2;
+    the BN-adapted call leaves every running statistic and flag alone."""
+    import numpy as np
+
+    from ramdsir_tpu_torch.train.steps import make_predict_fn
+
+    cfg, models = eval_models
+    img = np.random.default_rng(0).integers(0, 256, (8, EVAL_S, EVAL_S, 3)).astype(np.uint8)
+    before = {k: v.clone() for k, v in models["cuda"]["encoder"].state_dict().items()}
+    for batch in (img, img[:2]):
+        got = make_predict_fn(cfg, models["cuda"], bn_adapt=bn_adapt)(batch)
+        want = make_predict_fn(cfg, models["cpu"], bn_adapt=bn_adapt)(batch)
+        assert got.is_cuda and got.shape == (len(batch), 2, EVAL_S, EVAL_S)
+        assert float((got.cpu() - want).abs().max()) <= 1e-4
+    assert models["cuda"]["encoder"].training
+    for k, v in models["cuda"]["encoder"].state_dict().items():
+        assert torch.equal(v, before[k]), k
+
+
+@pytest.mark.parametrize("bn_adapt", [False, True])
+def test_eval_fundus_on_card_matches_cpu(eval_models, bn_adapt):
+    """eval_fundus on an in-memory split of 10 images at 96^2 (test batch 4,
+    a tail of 2): Dice within 1e-3, distances from the same host library."""
+    from ramdsir_tpu_torch.data.synthetic import fundus_test_samples
+    from ramdsir_tpu_torch.train.evaluate import eval_fundus
+    from ramdsir_tpu_torch.train.steps import make_predict_fn
+
+    cfg, models = eval_models
+    samples = fundus_test_samples(num=10, size=96, image_size=EVAL_S, seed=1)
+    res = {
+        dev: eval_fundus(make_predict_fn(cfg, models[dev], bn_adapt=bn_adapt), samples, 0,
+                         batch_size=4, image_size=EVAL_S, with_distances=True)
+        for dev in ("cuda", "cpu")
+    }
+    assert res["cuda"].num == res["cpu"].num == 10 and res["cuda"].timing["batches"] == 3
+    assert abs(res["cuda"].cup_dice - res["cpu"].cup_dice) <= 1e-3
+    assert abs(res["cuda"].disc_dice - res["cpu"].disc_dice) <= 1e-3
