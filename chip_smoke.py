@@ -9,7 +9,9 @@ result line):
               the two started together
   kernel      K1 against its plain PyTorch version on the card, in full,
               band and delta modes, at the main path's shapes and at
-              (65, 63), plus the zero-amplitude and ratio-1 cases, a
+              (65, 63), in band and delta modes at the prostate path's
+              (10 x 3 planes at 384^2, b = 38; bit-equal), plus the
+              zero-amplitude and ratio-1 cases, a
               spectrum off 16 bytes (the strided path), a single plane, an
               odd element count and tiny out-of-band amplitudes (bit-equal);
               each case names the code path it launched.  At the main
@@ -19,7 +21,8 @@ result line):
               the kernel's own device time (torch.profiler), beside
               `kernel_floor_ms`; `ms_clean_flush` and `floor_ms_clean_flush`,
               the same two after a flush that leaves L2 clean (a read instead
-              of zero_); the bound from `k1_min_bytes`
+              of zero_); the bound from `k1_min_bytes`.  delta@384x384
+              is timed the same way
   ram_oracle  the RAM functions on the card against a float64 numpy oracle
   main_path   the fundus trainer (`train.loop.fit`) at 256^2, U-Net n=16,
               batch 16 = 3+6+7 over domains 1,2,3, on an in-memory synthetic
@@ -38,7 +41,8 @@ result line):
               the same split; the six metrics, the timings, the host's share
               of the eval's wall time, and where the forward's device time
               goes (torch.profiler over four batches of 8)
-  profile     where a default step's device time goes (torch.profiler)
+  profile     where a default fundus step's and a prostate step's device
+              time goes (torch.profiler over 5 steps each)
   step_parity one step with K1 and the same step with the plain mix, from
               the same state and draws (TF32 off, deterministic cuDNN)
   eval_parity the same weights and 16 test images on the card and on the
@@ -46,8 +50,32 @@ result line):
               in both BN modes, tail batch included, Dice within 1e-3, and
               the host library's post-processing and distances bit-equal to
               their scipy plain versions on the eval's own maps
+  prostate_path
+              the prostate trainer (`fit`) at the reference configuration:
+              domains 0-4 -> target 5, batch 10 = 2 x 5, 384^2, U-Net n=16,
+              5 DSBN domains, banded-DFT RAM (K1 on delta_flat), 25 steps on
+              an in-memory synthetic set of 5 domains x 40 slices; it
+              evaluates 3 synthetic volumes of 32 slices, written as .nii.gz
+              and read back, at each epoch's end (20 steps) and at the last
+              step, test batch 8 (4 window batches a volume, the last with
+              2 zero rows).  K1 launches == steps, all on delta_flat, none in
+              eval; the 7 losses finite every step; 2 CSV rows; Dice in
+              [0, 1]; the final and keep-best .pth load strictly
+  prostate_eval_cli
+              cli/test_prostate_volume.py's main on that run's
+              final_model.pth: BN adaptation, Dice, HD95, ASD, the timing
+  prostate_step_parity
+              one prostate step with K1 and with the plain mix (as
+              step_parity)
+  prostate_eval_parity
+              that run's weights and one volume on the card and on the CPU,
+              both BN modes: probabilities within 1e-4, labels differing at
+              most at 1e-4 of the voxels, Dice within 1e-3; the host
+              library's largest component and 3-D surface distances
+              bit-equal to scipy on the card's predictions
 Then the card line from nvidia-smi, the kernels line, and the result line.
-Run artefacts go to chiprun_out/chip_smoke/.
+Run artefacts go to chiprun_out/chip_smoke/ (prostate: chip_smoke/prostate/);
+the .pth files and the NIfTI volumes are deleted at exit.
 """
 import json
 import os
@@ -73,6 +101,12 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 B, C, S = 16, 3, 256  # main path: batch 16, RGB, 256^2
 STEPS = {"default": 30, "ram_use_pallas": 10, "no_ram_banded_dft": 10}
 EVAL_N, EVAL_SIZE = 50, 512  # in-memory test split: images, original size
+PB, PS = 10, 384  # prostate path: batch 10 = 2 x 5, 384^2
+PROSTATE_STEPS, PROSTATE_SLICES = 25, 40  # 20 steps an epoch: evals at step 20 and 25
+PROSTATE_VOLUMES, PROSTATE_DEPTH, PROSTATE_TEST_BATCH = 3, 32, 8
+PROSTATE_OUT = os.path.join(OUT, "prostate")
+DEVICE = "cuda"  # the prostate phases' device (a rehearsal on the CPU may set "cpu")
+TIMED = (f"full@{S}x{S}", f"band@{S}x{S}", f"delta@{S}x{S}", f"delta@{PS}x{PS}")
 
 
 MAIN_PATHS = {"default": "delta_flat", "ram_use_pallas": "full_vec", "no_ram_banded_dft": "strided"}
@@ -171,19 +205,21 @@ def kernel_cases(torch, tram, ram_mix, gen):
         return torch.fft.rfft2(x)  # (n, c, h, w//2+1) complex64
 
     cases = []
-    for h, w in ((S, S), (65, 63)):
+    # the fundus main path, an odd shape, and the prostate path (bit-equal)
+    for n, h, w, modes in ((B, S, S, "full band delta"), (B, 65, 63, "full band delta"), (PB, PS, PS, "band delta")):
         b = tram.band_halfwidth(h, w)
-        z = spectrum(B, h, w)
-        donor = torch.rand((B, h, w, C), generator=gen, device="cuda") * 255.0
+        z = spectrum(n, h, w)
+        donor = torch.rand((n, h, w, C), generator=gen, device="cuda") * 255.0
         amp_full = tram.amplitude_spectrum(donor).permute(0, 3, 1, 2)  # as ram_mixup passes it
         amp_band = tram.banded_amplitude_spectrum(donor).permute(0, 3, 1, 2)
-        ratio = (torch.randint(1, 11, (B,), generator=gen, device="cuda") / 10.0).float()
+        ratio = (torch.randint(1, 11, (n,), generator=gen, device="cuda") / 10.0).float()
         rows = torch.cat([torch.arange(b + 1, device="cuda"), torch.arange(h - b, h, device="cuda")])
         blk = z[:, :, rows, : b + 1]
-        tag = f"{h}x{w}"
-        cases.append((f"full@{tag}", dict(z=z, amp=amp_full, ratio=ratio, band=b, full=True, delta=False)))
-        cases.append((f"band@{tag}", dict(z=z, amp=amp_band, ratio=ratio, band=b, full=False, delta=False)))
-        cases.append((f"delta@{tag}", dict(z=blk, amp=amp_band, ratio=ratio, band=b, full=False, delta=True)))
+        tag, common = f"{h}x{w}", dict(ratio=ratio, band=b, dims=(n, C, h, w // 2 + 1), exact=n == PB)
+        if "full" in modes:
+            cases.append((f"full@{tag}", dict(z=z, amp=amp_full, full=True, delta=False, **common)))
+        cases.append((f"band@{tag}", dict(z=z, amp=amp_band, full=False, delta=False, **common)))
+        cases.append((f"delta@{tag}", dict(z=blk, amp=amp_band, full=False, delta=True, **common)))
     # zero amplitude in and out of the band, and ratio 1 (exact identity)
     h = w = 64
     b = tram.band_halfwidth(h, w)
@@ -298,8 +334,10 @@ def phase_kernel(torch, tram, ram_mix, bw):
         if case.get("exact") and not torch.equal(got, want):
             raise SystemExit(f"K1 {name}: not bit-equal to the plain version")
         entry = dict(case=name, path=case["path"], max_abs_err=err, max_rel_err=rel)
-        if name.endswith(f"@{S}x{S}"):
-            n, c, h, wh = case["z"].shape if not case["delta"] else (B, C, S, S // 2 + 1)
+        if case.get("exact"):
+            entry["bit_equal"] = True
+        if name in TIMED:
+            n, c, h, wh = case["dims"]
             b = case["band"]
             band_elems = n * c * (2 * b + 1) * (b + 1)
             nbytes = k1_min_bytes(n, c, h, wh, b, case["mode"])
@@ -487,10 +525,7 @@ def phase_step_parity(torch, np, ram_mix, arrays):
     from ramdsir_tpu_torch.train.state import init_state
     from ramdsir_tpu_torch.train.steps import make_train_step, sample_step_draws
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    set_exact_float32(torch)
     results = {}
     for name in ("default", "ram_use_pallas"):
         cfg = main_path_config(TrainConfig, name, os.path.join(OUT, "parity"))
@@ -572,10 +607,7 @@ def phase_eval_parity(torch, np, testset, n=16, batch=7):
     from ramdsir_tpu_torch.train.evaluate import _q16, eval_fundus
     from ramdsir_tpu_torch.train.steps import make_predict_fn
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    set_exact_float32(torch)
     path = os.path.join(OUT, "default", "final_model.pth")
     models = {dev: eval_models(torch, path, dev) for dev in ("cuda", "cpu")}
     samples = testset[:n]
@@ -624,6 +656,233 @@ def phase_eval_parity(torch, np, testset, n=16, batch=7):
         raise SystemExit("eval_parity: every predicted mask was empty; no distance was compared")
 
 
+# --- the prostate path ------------------------------------------------------------
+
+
+def prostate_config(TrainConfig, run_dir, data_root):
+    """The reference prostate configuration (bench.py:72-74, :193-210)."""
+    return TrainConfig(
+        dataset="prostate", domain_idxs=(0, 1, 2, 3, 4), test_domain_idx=5, ram=True, rec=True,
+        consistency=True, consistency_type="kd", image_size=PS, save_path=run_dir, data_root=data_root,
+        device=DEVICE,
+    ).resolve()
+
+
+def prostate_eval_fields(timing):
+    """The volume eval's split by phase, from `ProstateEvalResult.timing`."""
+    host_parts = ("load", "windows", "scatter", "postprocess", "save", "dice", "distances")
+    host = sum(timing[k] for k in host_parts)
+    return dict(
+        eval_s=timing["wall"], eval_volumes=timing["volumes"], eval_batches=timing["batches"],
+        forward_ms_per_batch=1e3 * timing["forward"] / timing["batches"],
+        readback_ms_per_volume=1e3 * timing["readback"] / timing["volumes"],
+        host_ms_per_volume_by_part={k: 1e3 * timing[k] / timing["volumes"] for k in host_parts},
+        host_share=host / timing["wall"],
+    )
+
+
+def phase_prostate_path(torch, np, ram_mix, prostate, data_root):
+    from ramdsir_tpu_torch.config import TrainConfig
+    from ramdsir_tpu_torch.data.device_pipeline import DeviceProstatePipeline
+    from ramdsir_tpu_torch.train.checkpoint import load_torch_checkpoint
+    from ramdsir_tpu_torch.train.loop import fit, tf32_settings
+    from ramdsir_tpu_torch.train.state import build_models
+
+    run_dir = os.path.join(PROSTATE_OUT, "run")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    cfg = prostate_config(TrainConfig, run_dir, data_root)
+    pipe = DeviceProstatePipeline.from_arrays(
+        prostate, cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx,
+        is_out_domain=cfg.is_out_domain, seed=cfg.seed, precompute_donor_amp=cfg.ram_precompute_donor_amp,
+        device=DEVICE,
+    )
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ram_mix.launches = 0
+    ram_mix.launches_by_path.update(dict.fromkeys(ram_mix.launches_by_path, 0))
+    t0 = time.perf_counter()
+    summary = fit(cfg, max_steps=PROSTATE_STEPS, pipeline=pipe)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ram_mix.launches
+    paths = {p: k for p, k in ram_mix.launches_by_path.items() if k}
+    peak = torch.cuda.max_memory_allocated()
+    rows = [json.loads(line) for line in open(os.path.join(run_dir, "log", "metrics.jsonl"))]
+    keys = ("loss_ce_1", "loss_dice_1", "loss_ce_2", "loss_dice_2", "loss_consistency", "loss_rec", "loss")
+    steps_logged = [r for r in rows if "loss/loss" in r]
+    finite = len(steps_logged) == PROSTATE_STEPS and all(
+        set(k[5:] for k in r if k.startswith("loss/")) == set(keys) and np.all(np.isfinite([r[f"loss/{k}"] for k in keys]))
+        for r in steps_logged
+    )
+    payload = torch.load(summary["final_checkpoint"], map_location="cpu")
+    for mname, module in build_models(cfg).items():
+        module.load_state_dict(payload[f"{mname}_state_dict"], strict=True)
+    load_torch_checkpoint(summary["best_checkpoint"], build_models(cfg))
+    csv_rows = open(os.path.join(run_dir, f"{cfg.test_domain_idx}_val_log.csv")).read().splitlines()
+    timing = summary["eval_timing"]
+    entry = dict(
+        run="prostate", steps=summary["steps"], k1_launches=launches, k1_paths=paths, losses_finite=finite,
+        first_loss=steps_logged[0]["loss/loss"], last_loss=steps_logged[-1]["loss/loss"],
+        median_step_ms=summary["median_step_ms"], images_per_sec=summary["images_per_sec"],
+        peak_memory_bytes=peak, wall_s=wall, batch=sum(cfg.batch_size_list), image_size=PS,
+        dsbn_domains=len(cfg.domain_idxs), tf32=tf32_settings(), dice=summary["dice"], best=summary["best"],
+        best_file=os.path.basename(summary["best_checkpoint"]), csv_rows=len(csv_rows),
+        eval_depth=PROSTATE_DEPTH, test_batch=cfg.test_batch_size, **prostate_eval_fields(timing),
+    )
+    emit("prostate_path", **entry)
+    if not finite:
+        raise SystemExit("prostate path: non-finite or missing losses")
+    if summary["steps"] != PROSTATE_STEPS or launches != PROSTATE_STEPS or paths != {"delta_flat": PROSTATE_STEPS}:
+        raise SystemExit(f"prostate path: {summary['steps']} steps, K1 launches {launches} on {paths}, "
+                         f"expected {PROSTATE_STEPS} on delta_flat")
+    if len(csv_rows) != 2 or not 0.0 <= summary["dice"] <= 1.0:
+        raise SystemExit(f"prostate path: {len(csv_rows)} CSV rows, Dice {summary['dice']}")
+    if timing["volumes"] != PROSTATE_VOLUMES or timing["batches"] != PROSTATE_VOLUMES * (PROSTATE_DEPTH // cfg.test_batch_size):
+        raise SystemExit(f"prostate path: eval read {timing['volumes']} volumes in {timing['batches']} batches")
+    return entry
+
+
+def phase_prostate_eval_cli(torch, np, data_root):
+    """cli/test_prostate_volume.py's main on the prostate run's final model,
+    on the card by default: BN adaptation, distances, the CSV log."""
+    from ramdsir_tpu_torch.cli.test_prostate_volume import main as eval_main
+
+    path = os.path.join(PROSTATE_OUT, "run", "final_model.pth")
+    save = os.path.join(PROSTATE_OUT, "eval")
+    res = eval_main(["--model_file", path, "--data_dir", data_root, "--datasetTest", "5",
+                     "--test_prediction_save_path", save, "--batch_size", str(PROSTATE_TEST_BATCH),
+                     "--device", DEVICE])
+    torch.cuda.synchronize()
+    three = dict(dice=res.dice, hd95=res.hd, asd=res.asd)
+    emit("prostate_eval_cli", model_file=os.path.relpath(path, REPO), bn_adapt=True, with_distances=True,
+         num=res.num, per_case=res.per_case, **three, **prostate_eval_fields(res.timing))
+    if res.num != PROSTATE_VOLUMES or not all(np.isfinite(v) for v in three.values()) or not 0.0 <= res.dice <= 1.0:
+        raise SystemExit(f"prostate_eval_cli: {res.num} volumes, metrics {three}")
+    if not os.path.isfile(os.path.join(save, "test5_log.csv")):
+        raise SystemExit("prostate_eval_cli: no CSV log")
+
+
+def phase_prostate_step_parity(torch, np, ram_mix, prostate):
+    """One prostate step through K1 and through the plain mix, as
+    phase_step_parity does for fundus."""
+    from ramdsir_tpu_torch.config import TrainConfig
+    from ramdsir_tpu_torch.data.device_pipeline import DeviceProstatePipeline
+    from ramdsir_tpu_torch.train.state import init_state
+    from ramdsir_tpu_torch.train.steps import make_train_step, sample_step_draws
+
+    set_exact_float32(torch)
+    cfg = prostate_config(TrainConfig, os.path.join(PROSTATE_OUT, "parity"), "unused")
+    pipe = DeviceProstatePipeline.from_arrays(
+        prostate, cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx, seed=cfg.seed, device=DEVICE
+    )
+    row = next(iter(pipe))
+    draws = sample_step_draws(torch.Generator().manual_seed(5), PB, torch.device(DEVICE), crop=False)
+    out = {}
+    for impl in ("kernel", "plain"):
+        state = init_state(cfg, torch.Generator().manual_seed(cfg.seed), DEVICE)
+        step = make_train_step(cfg, total_iters=1000, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data)
+        before = ram_mix.launches
+        if impl == "plain":
+            with mock.patch.object(ram_mix, "mix_spectrum", ram_mix.mix_spectrum_plain):
+                m = step(state, row, draws=draws)
+        else:
+            m = step(state, row, draws=draws)
+        if ram_mix.launches - before != (impl == "kernel"):
+            raise SystemExit(f"prostate step parity: the {impl} step launched K1 {ram_mix.launches - before} times")
+        out[impl] = (
+            {k: float(v) for k, v in m.items()},
+            {f"{n}.{k}": v.detach().clone() for n, mod in state.models.items() for k, v in mod.state_dict().items()},
+        )
+    (mk, pk), (mp, pp) = out["kernel"], out["plain"]
+    loss_rel = max(abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-6) for k in mk)
+    param_err = max(float((pk[k] - pp[k]).abs().max()) for k in pk if "running" not in k)
+    stats = [k for k in pk if "running" in k]
+    stat_err = max(float((pk[k] - pp[k]).abs().max()) for k in stats)
+    stats_ok = all(torch.allclose(pk[k], pp[k], rtol=1e-4, atol=1e-5) for k in stats)
+    entry = dict(run="prostate", loss=mk["loss"], loss_max_rel=loss_rel, loss_tol=1e-5,
+                 params_max_abs=param_err, params_tol=2.5 * cfg.lr,
+                 running_stats_max_abs=stat_err, stats_tol="rtol 1e-4, atol 1e-5")
+    emit("prostate_step_parity", **entry)
+    if not (loss_rel <= 1e-5 and param_err <= 2.5 * cfg.lr and stats_ok):
+        raise SystemExit(f"prostate step parity: kernel and plain steps disagree: {entry}")
+
+
+def phase_prostate_eval_parity(torch, np, volume):
+    """The prostate run's final weights and one volume on the card and on the
+    CPU (TF32 off, deterministic cuDNN) in both BN modes, through
+    eval_prostate_volumes; then the host library against scipy on the card's
+    predictions."""
+    from ramdsir_tpu_torch.config import TrainConfig
+    from ramdsir_tpu_torch.ops import metrics, postprocess
+    from ramdsir_tpu_torch.train import evaluate
+    from ramdsir_tpu_torch.train.checkpoint import load_torch_checkpoint
+    from ramdsir_tpu_torch.train.state import build_models
+    from ramdsir_tpu_torch.train.steps import make_predict_fn
+
+    set_exact_float32(torch)
+    path = os.path.join(PROSTATE_OUT, "run", "final_model.pth")
+    entry = dict(volume=volume[0], depth=volume[1].shape[0], batch=PROSTATE_TEST_BATCH, prob_tol=1e-4,
+                 label_share_tol=1e-4, dice_tol=1e-3)
+    card_labels = None
+    for bn_adapt in (False, True):
+        got = {}
+        for dev in (DEVICE, "cpu"):
+            cfg = TrainConfig(dataset="prostate", rec=False, ram=False, device=dev).resolve()
+            models = build_models(cfg)
+            load_torch_checkpoint(path, models)
+            for m in models.values():
+                m.to(dev)
+            predict = make_predict_fn(cfg, models, bn_adapt=bn_adapt)
+            probs, labels = [], []
+
+            def recording(x, predict=predict, probs=probs):
+                probs.append(predict(x).cpu())
+                return probs[-1].to(dev)
+
+            def region(pred_y, labels=labels):
+                labels.append(pred_y)
+                return postprocess.connectivity_region_analysis(pred_y)
+
+            with mock.patch.object(evaluate, "connectivity_region_analysis", region):
+                res = evaluate.eval_prostate_volumes(recording, [volume], 5, batch_size=PROSTATE_TEST_BATCH)
+            got[dev] = (torch.stack(probs), labels[0], res.dice)
+        (pc, lc, dc), (pp, lp, dp) = got[DEVICE], got["cpu"]
+        prob_err = float((pc - pp).abs().max())
+        label_share = float(np.mean(lc != lp))
+        tag = "bn_adapt" if bn_adapt else "running_stats"
+        entry[tag] = dict(prob_max_abs=prob_err, label_share_differing=label_share, dice_abs=abs(dc - dp),
+                          dice=dc, batches=len(pc), foreground_voxels=int(lc.sum()))
+        if prob_err > 1e-4 or label_share > 1e-4 or abs(dc - dp) > 1e-3:
+            raise SystemExit(f"prostate_eval_parity {tag}: {entry[tag]}")
+        card_labels = lc
+    # the host library against scipy on the card's labels of the volume
+    mask = volume[2] != 0
+    ours = postprocess.connectivity_region_analysis(card_labels)
+    plain = postprocess.connectivity_region_analysis_plain(card_labels)
+    if ours.dtype != plain.dtype or not np.array_equal(ours, plain):
+        raise SystemExit("prostate_eval_parity: largest_cc_nd differs from its plain version")
+    distances = 0
+    for pred in (ours.astype(bool), card_labels != 0):
+        if not (pred.any() and mask.any()):
+            continue
+        for a, b in ((pred, mask), (mask, pred)):
+            if not np.array_equal(metrics.surface_distances(a, b), metrics.surface_distances_plain(a, b)):
+                raise SystemExit("prostate_eval_parity: 3-D surface distances differ from their plain version")
+            distances += 1
+    entry.update(largest_cc_bit_equal=True, distance_sets_bit_equal=distances)
+    emit("prostate_eval_parity", **entry)
+    if not distances:
+        raise SystemExit("prostate_eval_parity: the card predicted no foreground; no distance was compared")
+
+
+def set_exact_float32(torch):
+    """float32 convolutions and products without TF32, deterministic cuDNN."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
 KERNEL_GROUPS = [  # (group, substrings of CUDA kernel names), first match wins
     ("K1 ram_mix", ("mix_full_vec_kernel", "mix_delta_flat_kernel", "mix_strided_kernel")),
     ("fft", ("fft", "radix", "regular_fft", "vector_fft")),
@@ -636,21 +895,32 @@ KERNEL_GROUPS = [  # (group, substrings of CUDA kernel names), first match wins
 ]
 
 
-def phase_profile(torch, ram_mix, arrays, steps=5, warmup=3):
-    """Where a default step's device time goes: torch.profiler over `steps`
-    steps after `warmup`, each step synchronised as `fit` does."""
-    from torch.profiler import ProfilerActivity, profile
-
+def phase_profile(torch, ram_mix, arrays, prostate, steps=5, warmup=3):
+    """Where a default fundus step's and a prostate step's device time goes:
+    torch.profiler over `steps` steps after `warmup`, each step synchronised
+    as `fit` does."""
     from ramdsir_tpu_torch.config import TrainConfig
-    from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
-    from ramdsir_tpu_torch.train.state import init_state
-    from ramdsir_tpu_torch.train.steps import make_train_step
+    from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline, DeviceProstatePipeline
 
     cfg = main_path_config(TrainConfig, "default", os.path.join(OUT, "profile"))
     pipe = DeviceFundusPipeline.from_arrays(
         arrays, cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx,
         is_out_domain=True, seed=cfg.seed, precompute_donor_amp=True, device="cuda",
     )
+    profile_steps(torch, "default", cfg, pipe, steps, warmup)
+    cfg = prostate_config(TrainConfig, os.path.join(PROSTATE_OUT, "profile"), "unused")
+    pipe = DeviceProstatePipeline.from_arrays(
+        prostate, cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx, seed=cfg.seed, device="cuda"
+    )
+    profile_steps(torch, "prostate", cfg, pipe, steps, warmup)
+
+
+def profile_steps(torch, run, cfg, pipe, steps, warmup):
+    from torch.profiler import ProfilerActivity, profile
+
+    from ramdsir_tpu_torch.train.state import init_state
+    from ramdsir_tpu_torch.train.steps import make_train_step
+
     state = init_state(cfg, torch.Generator().manual_seed(cfg.seed), "cuda")
     step = make_train_step(cfg, total_iters=1000, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data)
     gen = torch.Generator().manual_seed(0)
@@ -669,8 +939,8 @@ def phase_profile(torch, ram_mix, arrays, steps=5, warmup=3):
             one()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    emit("profile", run="default", steps=steps, step_ms=wall_us / steps / 1e3,
-         **device_breakdown(prof, wall_us, steps, "step"))
+    emit("profile", run=run, steps=steps, step_ms=wall_us / steps / 1e3, batch=sum(cfg.batch_size_list),
+         image_size=cfg.image_size, **device_breakdown(prof, wall_us, steps, "step"))
 
 
 def device_breakdown(prof, wall_us, count, unit):
@@ -784,10 +1054,11 @@ def main():
     try:
         return run_phases(torch, card, name, bw)
     finally:
-        # the checkpoints are ~10 MB each: keep the logs, drop the weights
+        # the checkpoints are ~10 MB each and the volumes ~19 MB: keep the
+        # logs, drop the weights and the data
         for root, _, files in os.walk(OUT):
             for f in files:
-                if f.endswith(".pth"):
+                if f.endswith((".pth", ".nii.gz")):
                     os.remove(os.path.join(root, f))
 
 
@@ -795,7 +1066,14 @@ def run_phases(torch, card, name, bw):
     import numpy as np
 
     from ramdsir_tpu_torch import native
-    from ramdsir_tpu_torch.data.synthetic import fundus_arrays, fundus_test_samples
+    from ramdsir_tpu_torch.config import PROSTATE_DOMAINS, PROSTATE_VOLUME_DOMAINS
+    from ramdsir_tpu_torch.data.synthetic import (
+        fundus_arrays,
+        fundus_test_samples,
+        make_prostate_volumes,
+        prostate_arrays,
+        prostate_volumes,
+    )
     from ramdsir_tpu_torch.ops import ram as tram
     from ramdsir_tpu_torch.ops import ram_mix
 
@@ -810,9 +1088,25 @@ def run_phases(torch, card, name, bw):
          seconds=time.perf_counter() - t0)
     runs = phase_main_path(torch, np, ram_mix, arrays, testset)
     phase_eval_cli(torch, np, testset)
-    phase_profile(torch, ram_mix, arrays)
+
+    t0 = time.perf_counter()
+    # 5 source domains x 40 slices at 384^2, as bench.py:74 (354 MB of float32)
+    prostate = prostate_arrays(per_domain=PROSTATE_SLICES, size=PS, seed=0, domains=PROSTATE_DOMAINS[:5])
+    data_root = os.path.join(PROSTATE_OUT, "data")
+    shutil.rmtree(data_root, ignore_errors=True)
+    make_prostate_volumes(data_root, per_domain=PROSTATE_VOLUMES, depth=PROSTATE_DEPTH, size=PS, seed=1,
+                          domains=[PROSTATE_VOLUME_DOMAINS[5]])
+    emit("prostate_data", domains=len(prostate), per_domain=PROSTATE_SLICES, size=PS,
+         volumes=PROSTATE_VOLUMES, depth=PROSTATE_DEPTH, seconds=time.perf_counter() - t0)
+    prostate_run = phase_prostate_path(torch, np, ram_mix, prostate, data_root)
+    phase_prostate_eval_cli(torch, np, data_root)
+
+    phase_profile(torch, ram_mix, arrays, prostate)
     phase_step_parity(torch, np, ram_mix, arrays)
     phase_eval_parity(torch, np, testset)
+    phase_prostate_step_parity(torch, np, ram_mix, prostate)
+    volume = prostate_volumes(per_domain=1, depth=PROSTATE_DEPTH, size=PS, seed=1, domains=["HK"])["HK"][0]
+    phase_prostate_eval_parity(torch, np, volume)
 
     modes = [("band,delta", "delta", "default"), ("full", "full", "ram_use_pallas"), ("band", "band", "no_ram_banded_dft")]
     line = {"kernels": []}
@@ -825,6 +1119,14 @@ def run_phases(torch, card, name, bw):
             "library_ms": None, "floor_ms": k["floor_ms"], "kernel_ms": k["kernel_ms"],
             "ms_clean_flush": k["ms_clean_flush"], "floor_ms_clean_flush": k["floor_ms_clean_flush"], "path": k["path"],
         })
+    k = kernels[f"delta@{PS}x{PS}"]
+    line["kernels"].append({
+        "name": f"ram_mix[band,delta]@prostate {PB}x{C}x{PS}x{PS}", "route": "cuda", "source": SOURCE_REL,
+        "replaces": REPLACES, "launches": prostate_run["k1_launches"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
+        "floor_ms": k["floor_ms"], "kernel_ms": k["kernel_ms"], "ms_clean_flush": k["ms_clean_flush"],
+        "floor_ms_clean_flush": k["floor_ms_clean_flush"], "path": k["path"],
+    })
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

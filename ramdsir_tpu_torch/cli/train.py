@@ -2,10 +2,14 @@
 --device.  A flag whose feature is not ported yet raises
 NotImplementedError naming its ROADMAP.md item.
 
-Example (fundus RAM-DSIR, target domain 3, on the card):
+Examples (RAM-DSIR on the card; fundus target domain 3, prostate target 5
+with the five other domains as sources, each evaluated every epoch):
   python -m ramdsir_tpu_torch.cli.train --dataset fundus --domain_idxs 0,1,2 \
       --test_domain_idx 3 --ram --rec --is_out_domain --consistency \
       --consistency_type kd --save_path runs/fundus_t3
+  python -m ramdsir_tpu_torch.cli.train --dataset prostate --domain_idxs 0,1,2,3,4 \
+      --test_domain_idx 5 --ram --rec --consistency --consistency_type kd \
+      --save_path runs/prostate_t5
 """
 from __future__ import annotations
 

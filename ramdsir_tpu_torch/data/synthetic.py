@@ -1,22 +1,26 @@
-"""Synthetic fundus data for smoke runs and tests (PyTorch port of
-`ramdsir_tpu/data/synthetic.py:20-64`).
+"""Synthetic fundus and prostate data for smoke runs and tests (PyTorch
+port of `ramdsir_tpu/data/synthetic.py`).
 
 `fundus_arrays` builds the stacked train arrays and `fundus_test_samples` a
 test split in memory, writing nothing; `make_fundus_tree` writes the PNG
 tree + .list manifests the fundus reader expects (it needs PIL, imported
-inside).
+inside).  `prostate_arrays` and `prostate_volumes` draw the prostate train
+slices and eval volumes in memory; `make_prostate_tree` and
+`make_prostate_volumes` write the same draws as the .npy slice tree and the
+.nii.gz volumes the JAX package's generators write.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ramdsir_tpu_torch.config import FUNDUS_DOMAINS
+from ramdsir_tpu_torch.config import FUNDUS_DOMAINS, PROSTATE_DOMAINS, PROSTATE_VOLUME_DOMAINS
 from ramdsir_tpu_torch.data.fundus import fundus_multilabel
+from ramdsir_tpu_torch.data.nifti import write_nifti
 
 
 def _fundus_pair(rng: np.random.Generator, size: int):
@@ -110,4 +114,93 @@ def make_fundus_tree(
                 f.write("\n".join(lines_local) + "\n")
             with open(os.path.join(base, f"{dom}_{split}.list"), "w") as f:
                 f.write("\n".join(lines_global) + "\n")
+    return base
+
+
+def prostate_arrays(
+    per_domain: int = 40,
+    size: int = 384,
+    seed: int = 0,
+    domains: Sequence[str] = tuple(PROSTATE_DOMAINS),
+) -> Dict[str, Dict[str, np.ndarray]]:
+    """In-memory prostate train slices: {domain: {"images": (N, S, S, 3)
+    float32 in [-1, 1], "masks": (N, S, S) int64 0/1}}, a disc of brighter
+    foreground on uniform noise, the draws `make_prostate_tree` writes."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size]
+    out = {}
+    for dom in domains:
+        imgs, masks = [], []
+        for _ in range(per_domain):
+            img = rng.uniform(-1, 0.2, (size, size, 3)).astype(np.float32)
+            cy, cx = rng.integers(size // 3, 2 * size // 3, 2)
+            r = size // rng.integers(4, 7)
+            mask = (((yy - cy) ** 2 + (xx - cx) ** 2) < r * r).astype(np.int64)
+            img[mask > 0] += 0.8  # learnable signal: the foreground is brighter
+            imgs.append(np.clip(img, -1, 1))
+            masks.append(mask)
+        out[dom] = {"images": np.stack(imgs), "masks": np.stack(masks)}
+    return out
+
+
+def make_prostate_tree(
+    root: str,
+    per_domain: int = 6,
+    size: int = 64,
+    seed: int = 0,
+    domains: Sequence[str] = tuple(PROSTATE_DOMAINS),
+) -> str:
+    """`prostate_arrays` written as `root/prostate/DomainX/{image,mask}/*.npy`."""
+    base = os.path.join(root, "prostate")
+    for dom, arrays in prostate_arrays(per_domain, size, seed, domains).items():
+        for sub in ("image", "mask"):
+            os.makedirs(os.path.join(base, dom, sub), exist_ok=True)
+        for i, (img, mask) in enumerate(zip(arrays["images"], arrays["masks"])):
+            np.save(os.path.join(base, dom, "image", f"{dom}_{i:03d}.npy"), img)
+            np.save(os.path.join(base, dom, "mask", f"{dom}_{i:03d}.npy"), mask)
+    return base
+
+
+def prostate_volumes(
+    per_domain: int = 1,
+    depth: int = 12,
+    size: int = 64,
+    seed: int = 0,
+    domains: Sequence[str] = tuple(PROSTATE_VOLUME_DOMAINS),
+) -> Dict[str, List[Tuple[str, np.ndarray, np.ndarray]]]:
+    """In-memory eval volumes {domain: [(file name, image (D, S, S) float32
+    in [0, 600), mask (D, S, S) uint8)]}: a centred disc, brighter, on the
+    middle half of the slices."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size]
+    disc = ((yy - size // 2) ** 2 + (xx - size // 2) ** 2) < (size // 5) ** 2
+    out = {}
+    for dom in domains:
+        out[dom] = []
+        for i in range(per_domain):
+            vol = rng.uniform(0, 400, (depth, size, size)).astype(np.float32)
+            mask = np.zeros((depth, size, size), np.uint8)
+            mask[depth // 4 : 3 * depth // 4, disc] = 1
+            vol[mask > 0] += 200
+            out[dom].append((f"Case{i:02d}.nii.gz", vol, mask))
+    return out
+
+
+def make_prostate_volumes(
+    root: str,
+    per_domain: int = 1,
+    depth: int = 12,
+    size: int = 64,
+    seed: int = 0,
+    domains: Sequence[str] = tuple(PROSTATE_VOLUME_DOMAINS),
+    base_name: str = "prostate",
+) -> str:
+    """`prostate_volumes` written as `root/<base_name>/<domain>/CaseNN.nii.gz`
+    and `CaseNN_segmentation.nii.gz`."""
+    base = os.path.join(root, base_name)
+    for dom, cases in prostate_volumes(per_domain, depth, size, seed, domains).items():
+        os.makedirs(os.path.join(base, dom), exist_ok=True)
+        for name, vol, mask in cases:
+            write_nifti(os.path.join(base, dom, name), vol)
+            write_nifti(os.path.join(base, dom, name.replace(".nii.gz", "_segmentation.nii.gz")), mask)
     return base

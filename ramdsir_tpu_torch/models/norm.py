@@ -18,7 +18,11 @@ statistics come from them alone, every row is normalised.
 `batch_statistics(*modules)`: within it, every BatchNorm of the modules
 normalises with the batch's own statistics (from the first n_valid rows)
 whatever its train flag, and updates no running statistic: the eval CLIs'
-BN adaptation, which leaves the modules as it found them.
+BN adaptation, which leaves the modules as it found them.  These statistics
+are summed in float64 (`_adapted_norm`): a prostate window batch holds 1.2 M
+values a channel, and float32 sums of that many put the card's and the
+CPU's probabilities further apart than eval's 1e-4 parity bound (zero-padded
+rows widen the spread); the training step keeps the fused float32 kernel.
 """
 from __future__ import annotations
 
@@ -58,6 +62,20 @@ def _train_norm(
     return (x - mean[None, :, None, None]) * scale[None, :, None, None] + bias[None, :, None, None]
 
 
+def _adapted_norm(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float, n_stats: Optional[int] = None
+) -> torch.Tensor:
+    """BN of x (N, C, H, W) with the biased batch statistics of x[:n_stats],
+    summed in float64 (two passes), updating nothing."""
+    real = x if n_stats is None else x[:n_stats]
+    n = real.numel() // real.shape[1]
+    dims = (0, 2, 3)
+    mean = (torch.sum(real, dim=dims, dtype=torch.float64) / n).float()[None, :, None, None]
+    var = torch.sum(torch.square(real - mean), dim=dims, dtype=torch.float64) / n
+    scale = (weight.double() * torch.rsqrt(var + eps)).float()
+    return (x - mean) * scale[None, :, None, None] + bias[None, :, None, None]
+
+
 class BatchNorm(nn.Module):
     def __init__(self, features: int, momentum: float = BN_MOMENTUM, eps: float = 1e-5):
         super().__init__()
@@ -79,14 +97,15 @@ class BatchNorm(nn.Module):
         self, x: torch.Tensor, *, dual: bool = False, n_valid: Optional[int] = None
     ) -> torch.Tensor:
         if self.batch_stats_only:
-            args = (self.weight, self.bias, None, None, 0.0, self.eps)
+            norm = lambda h: _adapted_norm(h, self.weight, self.bias, self.eps, n_valid)
         elif not self.training:
             return self.normalize_running(x)
         else:
             args = (self.weight, self.bias, self.running_mean, self.running_var, self.momentum, self.eps)
+            norm = lambda h: _train_norm(h, *args, n_valid)
         if dual:
-            return torch.cat([_train_norm(h, *args, n_valid) for h in x.chunk(2)])
-        return _train_norm(x, *args, n_valid)
+            return torch.cat([norm(h) for h in x.chunk(2)])
+        return norm(x)
 
 
 @contextlib.contextmanager

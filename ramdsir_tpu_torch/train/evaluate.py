@@ -1,5 +1,5 @@
-"""Leave-one-domain-out fundus evaluation (PyTorch port of the fundus part
-of `ramdsir_tpu/train/evaluate.py`).
+"""Leave-one-domain-out evaluation (PyTorch port of
+`ramdsir_tpu/train/evaluate.py`).
 
 `eval_fundus` predicts every test batch at the train resolution on the
 device, quantises the probabilities to uint16 there (`_q16`) and reads them
@@ -7,6 +7,13 @@ back once per EVAL_PULL_BYTES; on the host it resizes each map bilinearly to
 its image's original mask size, thresholds at 0.75 and keeps the largest
 component with holes filled (`ops.postprocess`), and scores cup and disc
 Dice, and with_distances HD95 and ASD with the empty-prediction sentinel 100.
+
+`eval_prostate_volumes` scores 3-D volumes: min-max to [-1, 1] in float64,
+3-slice windows in full batches (`predict_volume`), argmax labels computed
+on the device as uint8 and read back once a volume, the largest
+connectivity-1 component on the host, and volume Dice (HD95 and ASD with
+the sentinel).
+
 The post-processing and distances run in the port's host library
 (`ramdsir_tpu_torch.native`).
 """
@@ -15,17 +22,19 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from ramdsir_tpu_torch.config import PROSTATE_VOLUME_DOMAINS
 from ramdsir_tpu_torch.data.fundus import FundusDataset
 from ramdsir_tpu_torch.data.loaders import sequential_batches
+from ramdsir_tpu_torch.data.nifti import read_nifti
 from ramdsir_tpu_torch.ops.metrics import asd as asd_metric
-from ramdsir_tpu_torch.ops.metrics import dice_coeff_2label
+from ramdsir_tpu_torch.ops.metrics import dice_binary, dice_coeff_2label
 from ramdsir_tpu_torch.ops.metrics import hd95 as hd95_metric
-from ramdsir_tpu_torch.ops.postprocess import postprocessing
+from ramdsir_tpu_torch.ops.postprocess import connectivity_region_analysis, postprocessing
 from ramdsir_tpu_torch.ops.resize import bilinear_resize_chw
 
 EMPTY_SENTINEL = 100.0  # reference test_fundus_slice.py:111-131
@@ -175,6 +184,165 @@ def _consume_fundus_batches(pending, probs_per_batch, res, dataset_name, save_di
             timing["save"] += t3 - t2
             timing["dice"] += t4 - t3
             timing["distances"] += time.perf_counter() - t4
+
+
+@dataclass
+class ProstateEvalResult:
+    dice: float = 0.0
+    hd: float = 0.0
+    asd: float = 0.0
+    num: int = 0
+    per_case: List[Dict] = field(default_factory=list)
+    # seconds by phase (load, windows, forward, readback, scatter,
+    # postprocess, save, dice, distances, wall) and the volume and batch
+    # counts; not a result
+    timing: Dict[str, float] = field(default_factory=dict, compare=False, repr=False)
+
+    @property
+    def dice_pct(self) -> float:
+        return self.dice * 100.0
+
+
+def _labels_u8(probs: torch.Tensor) -> torch.Tensor:
+    """Class labels of (B, C, H, W) probabilities as uint8 on their device:
+    the first maximum, as np.argmax, and an eighth of float32's bytes."""
+    return torch.argmax(probs, dim=1).to(torch.uint8)
+
+
+def predict_volume(
+    predict: Callable,
+    image: np.ndarray,
+    mask: np.ndarray,
+    batch_size: int = 8,
+    timing: Optional[Dict[str, float]] = None,
+) -> np.ndarray:
+    """3-slice sliding-window prediction over a (D, H, W) float32 volume,
+    as the reference does: depth // batch_size full batches over the frames
+    1..D-2, the last one padded with zero windows (which, under BN
+    adaptation, enter the batch statistics), leftover frames dropped, and
+    frames whose ground truth is empty left at 0.  Every batch is dispatched
+    before the one readback of the volume's labels.  Returns (D, H, W)
+    float64 labels."""
+    timing = {} if timing is None else timing
+    for k in ("windows", "forward", "readback", "scatter"):
+        timing.setdefault(k, 0.0)
+    depth, h, w = image.shape
+    pred_y = np.zeros(mask.shape)
+    frame_list = list(range(1, depth - 1))
+    dispatched = []  # (frames, device labels)
+    for ii in range(depth // batch_size):
+        t0 = time.perf_counter()
+        frames = frame_list[ii * batch_size : (ii + 1) * batch_size]
+        vol = np.zeros((batch_size, h, w, 3), np.float32)
+        for idx, jj in enumerate(frames):
+            vol[idx] = image[jj - 1 : jj + 2].transpose(1, 2, 0)
+        t1 = time.perf_counter()
+        dispatched.append((frames, _labels_u8(predict(vol))))
+        timing["windows"] += t1 - t0
+        timing["forward"] += time.perf_counter() - t1
+        timing["batches"] = timing.get("batches", 0) + 1
+    if not dispatched:
+        return pred_y
+    t = time.perf_counter()
+    labels = dispatched[0][1]
+    if labels.device.type == "cuda":
+        torch.cuda.synchronize(labels.device)
+    t_sync = time.perf_counter()
+    stacked = torch.stack([p for _, p in dispatched]).cpu().numpy()
+    t_read = time.perf_counter()
+    for (frames, _), lab in zip(dispatched, stacked):
+        for idx, jj in enumerate(frames):
+            if mask[jj].sum() == 0:  # empty-GT frames stay 0 (reference quirk, kept)
+                continue
+            pred_y[jj] = lab[idx]
+    timing["forward"] += t_sync - t
+    timing["readback"] += t_read - t_sync
+    timing["scatter"] += time.perf_counter() - t_read
+    return pred_y
+
+
+def _volumes(data, test_domain_idx: int, dataset_name: str):
+    """(name, image, mask) of each test volume: in-memory triples as they
+    are, or the sorted NIfTI cases under data/<dataset_name>/<domain>."""
+    if not isinstance(data, str):
+        yield from data
+        return
+    vol_dir = os.path.join(data, dataset_name, PROSTATE_VOLUME_DOMAINS[test_domain_idx])
+    for name in sorted(f for f in os.listdir(vol_dir) if "segmentation" not in f):
+        image = read_nifti(os.path.join(vol_dir, name))
+        mask = read_nifti(os.path.join(vol_dir, name.replace(".nii.gz", "_segmentation.nii.gz")))
+        yield name, image, mask
+
+
+def eval_prostate_volumes(
+    predict: Callable,
+    data: Union[str, Sequence[Tuple[str, np.ndarray, np.ndarray]]],
+    test_domain_idx: int,
+    batch_size: int = 8,
+    with_distances: bool = False,
+    dataset_name: str = "prostate",
+    save_dir: Optional[str] = None,
+) -> ProstateEvalResult:
+    """Score `predict` (from `make_predict_fn`, prostate) on the test
+    volumes of domain test_domain_idx.
+
+    data: the data root (volumes under data/<dataset_name>/<domain>, as the
+    JAX package's data_dir), or in-memory (name, image (D, H, W), mask
+    (D, H, W)) volumes (`data.synthetic.prostate_volumes`).
+    """
+    t_start = time.perf_counter()
+    res = ProstateEvalResult()
+    phases = ("load", "windows", "forward", "readback", "scatter", "postprocess", "save", "dice", "distances")
+    timing = dict(dict.fromkeys(phases, 0.0), batches=0)
+    t = time.perf_counter()
+    for name, image, mask in _volumes(data, test_domain_idx, dataset_name):
+        image = np.asarray(image).astype(np.float64)
+        lo, hi = image.min(), image.max()
+        image = 2.0 * (image - lo) / max(hi - lo, 1e-12) - 1.0
+        mask = np.asarray(mask)
+        mask = np.where(mask == 2, 1, mask)
+        timing["load"] += time.perf_counter() - t
+
+        pred_y = predict_volume(predict, image.astype(np.float32), mask, batch_size, timing)
+        t0 = time.perf_counter()
+        processed = connectivity_region_analysis(pred_y)
+        t1 = time.perf_counter()
+        if save_dir:  # slice overlays (reference test_prostate_volume.py:129-141)
+            from ramdsir_tpu_torch.utils.viz import save_per_img, untransform_prostate
+
+            for z in range(image.shape[0]):
+                if mask[z].sum() == 0:  # empty-GT slices are skipped, as in the reference
+                    continue
+                save_per_img(untransform_prostate(image[z]), save_dir, f"{name.split('.')[0]}_{z}",
+                             processed[z], mask[z])
+        t2 = time.perf_counter()
+        pred_b, gt_b = processed.astype(bool), mask.astype(bool)
+        d = dice_binary(pred_b, gt_b)
+        case = {"id": name, "dice": d}
+        res.dice += d
+        t3 = time.perf_counter()
+        if with_distances:
+            if pred_b.sum() == 0 or gt_b.sum() == 0:
+                hd = a = EMPTY_SENTINEL
+            else:
+                hd, a = hd95_metric(pred_b, gt_b), asd_metric(pred_b, gt_b)
+            res.hd += hd
+            res.asd += a
+            case.update(hd95=hd, asd=a)
+        res.per_case.append(case)
+        res.num += 1
+        t = time.perf_counter()
+        timing["postprocess"] += t1 - t0
+        timing["save"] += t2 - t1
+        timing["dice"] += t3 - t2
+        timing["distances"] += t - t3
+
+    if res.num:
+        res.dice /= res.num
+        res.hd /= res.num
+        res.asd /= res.num
+    res.timing = dict(timing, volumes=res.num, wall=time.perf_counter() - t_start)
+    return res
 
 
 def append_csv_log(path: str, fields: List) -> None:

@@ -1,11 +1,12 @@
 """The training loop (PyTorch port of `ramdsir_tpu/train/loop.py:158-478`,
-fundus, one device, one step per dispatch).
+fundus and prostate, one device, one step per dispatch).
 
 Every `eval_every` epochs and at the end, `fit` evaluates on the target
-domain's test split (`train.evaluate.eval_fundus`, running statistics),
-appends the row to `{test_domain_idx}_val_log.csv`, logs `eval/avg_dice` and
-keeps the best checkpoint `model_<dice>.pth` (`train.checkpoint.BestKeeper`).
-Eval draws no random number and launches no RAM kernel.
+domain (running statistics): the fundus test split (`eval_fundus`) or the
+prostate volumes (`eval_prostate_volumes`).  It appends the row to
+`{test_domain_idx}_val_log.csv`, logs `eval/avg_dice` and keeps the best
+checkpoint `model_<dice>.pth` (`train.checkpoint.BestKeeper`).  Eval draws
+no random number and launches no RAM kernel.
 """
 from __future__ import annotations
 
@@ -13,17 +14,18 @@ import dataclasses
 import json
 import os
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 import ramdsir_tpu_torch
 from ramdsir_tpu_torch.config import TrainConfig
-from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
+from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline, DeviceProstatePipeline
 from ramdsir_tpu_torch.data.fundus import FundusMultiDataset
+from ramdsir_tpu_torch.data.prostate import ProstateMultiDataset
 from ramdsir_tpu_torch.train.checkpoint import BestKeeper
-from ramdsir_tpu_torch.train.evaluate import append_csv_log, eval_fundus
+from ramdsir_tpu_torch.train.evaluate import append_csv_log, eval_fundus, eval_prostate_volumes
 from ramdsir_tpu_torch.train.state import init_state
 from ramdsir_tpu_torch.train.steps import check_supported, make_predict_fn, make_train_step
 from ramdsir_tpu_torch.utils.device import resolve_device
@@ -55,26 +57,51 @@ def save_run_config(save_dir: str, cfg: TrainConfig) -> None:
         )
 
 
-def build_train_pipeline(cfg: TrainConfig, data_root: str) -> DeviceFundusPipeline:
-    """The fundus PNG tree under data_root, on cfg.device."""
-    datasets = [FundusMultiDataset(data_root, [d]) for d in cfg.domain_idxs]
-    return DeviceFundusPipeline.from_tree(
-        datasets, cfg.batch_size_list[: len(datasets)], data_root, cfg.image_size,
-        cfg.test_domain_idx, is_out_domain=cfg.is_out_domain, seed=cfg.seed,
+Pipeline = Union[DeviceFundusPipeline, DeviceProstatePipeline]
+
+
+def build_train_pipeline(cfg: TrainConfig, data_root: str) -> Pipeline:
+    """The fundus PNG tree or the prostate slice tree under data_root, on
+    cfg.device."""
+    kw = dict(
+        is_out_domain=cfg.is_out_domain, seed=cfg.seed,
         precompute_donor_amp=cfg.ram_precompute_donor_amp and cfg.ram, device=cfg.device,
     )
+    bsl = cfg.batch_size_list[: len(cfg.domain_idxs)]
+    if cfg.dataset == "prostate":
+        datasets = [ProstateMultiDataset(data_root, [d]) for d in cfg.domain_idxs]
+        return DeviceProstatePipeline.from_tree(datasets, bsl, data_root, cfg.test_domain_idx, **kw)
+    datasets = [FundusMultiDataset(data_root, [d]) for d in cfg.domain_idxs]
+    return DeviceFundusPipeline.from_tree(datasets, bsl, data_root, cfg.image_size, cfg.test_domain_idx, **kw)
+
+
+def evaluate_target(cfg: TrainConfig, predict, testset, epoch: int, save_dir: str):
+    """One in-training eval on the target domain: appends the CSV row and
+    returns (avg Dice in percent, summary fields)."""
+    data = cfg.data_root if testset is None else testset
+    log = os.path.join(save_dir, f"{cfg.test_domain_idx}_val_log.csv")
+    if cfg.dataset == "prostate":
+        res = eval_prostate_volumes(predict, data, cfg.test_domain_idx, batch_size=cfg.test_batch_size)
+        append_csv_log(log, ["batch-size: ", cfg.test_batch_size, epoch, "dice coefficence: ", res.dice])
+        return res.dice_pct, dict(dice=res.dice, eval_timing=res.timing)
+    res = eval_fundus(predict, data, cfg.test_domain_idx, batch_size=cfg.test_batch_size, image_size=cfg.image_size)
+    append_csv_log(log, ["batch-size: ", cfg.test_batch_size, epoch,
+                         "cup dice coefficence: ", res.cup_dice,
+                         "disc dice coefficence: ", res.disc_dice])
+    return res.avg_dice_pct, dict(cup_dice=res.cup_dice, disc_dice=res.disc_dice, eval_timing=res.timing)
 
 
 def fit(
     cfg: TrainConfig,
     eval_every: int = 1,
     max_steps: Optional[int] = None,
-    pipeline: Optional[DeviceFundusPipeline] = None,
-    testset: Optional[Sequence[Dict]] = None,
+    pipeline: Optional[Pipeline] = None,
+    testset: Optional[Sequence] = None,
 ) -> Dict:
     """Train on cfg.device; returns a summary dict.  `pipeline` and
-    `testset` replace the train set and the test split read from
-    cfg.data_root (in-memory sets, for smoke runs)."""
+    `testset` replace the train set and the test data read from
+    cfg.data_root (in-memory sets, for smoke runs): fundus test samples, or
+    prostate (name, image, mask) volumes."""
     cfg = cfg.resolve()
     check_supported(cfg)
     if not cfg.device_data:
@@ -126,18 +153,8 @@ def fit(
             timer.mark()
             writer.flush()
             with timer.paused():
-                res = eval_fundus(
-                    predict, cfg.data_root if testset is None else testset, cfg.test_domain_idx,
-                    batch_size=cfg.test_batch_size, image_size=cfg.image_size,
-                )
-                avg = res.avg_dice_pct
-                append_csv_log(
-                    os.path.join(save_dir, f"{cfg.test_domain_idx}_val_log.csv"),
-                    ["batch-size: ", cfg.test_batch_size, epoch,
-                     "cup dice coefficence: ", res.cup_dice,
-                     "disc dice coefficence: ", res.disc_dice],
-                )
-                summary.update(cup_dice=res.cup_dice, disc_dice=res.disc_dice, eval_timing=res.timing)
+                avg, fields = evaluate_target(cfg, predict, testset, epoch, save_dir)
+                summary.update(fields)
                 writer.add_scalars({"eval/avg_dice": avg}, step)
                 keeper.update(avg, state.models)
             print(

@@ -1,14 +1,20 @@
-"""The fundus train step and the predictor (PyTorch port of
-`ramdsir_tpu/train/steps.py:50-436` and `:509-553`).
+"""The train step and the predictor (PyTorch port of
+`ramdsir_tpu/train/steps.py:50-436` and `:509-553`), fundus and prostate.
 
-One call covers the reference's hot-loop iteration (code/train.py:223-331):
-RAM on the clean batch, one encoder + seg-decoder forward over the
-concatenation [clean; RAM] with per-half BN statistics, BCE + dice on both
-halves, 0.5 x KD consistency, the restoration decoder with domain-specific
-BN over the whole RAM bottleneck, and Adam with the poly LR (encoder at
-lr x 0.5 under --rec).
+One call covers the reference's hot-loop iteration (code/train.py:223-331
+fundus, :393-498 prostate): RAM on the clean batch, one encoder +
+seg-decoder forward over the concatenation [clean; RAM] with per-half BN
+statistics, the supervised losses on both halves, 0.5 x KD consistency, the
+restoration decoder with domain-specific BN over the whole RAM bottleneck,
+and Adam with the poly LR (encoder at lr x 0.5 under --rec).
 
-Randomness: every draw of a step (the RAM ratios and, with the device
+Heads: fundus has two sigmoid channels (BCE + dice).  Prostate's 2-class
+softmax head is computed from the logit difference l = logits[:, 1] -
+logits[:, 0], flattened to (B, H*W): cross-entropy over two classes is BCE
+on l, the class-1 dice is the dice of sigmoid(l), and the KD / MSE
+consistency has its binary form (ops/losses.py), as in the JAX package.
+
+Randomness: every draw of a step (the RAM ratios and, with the fundus device
 pipeline, the scale-crop's apply/factor/offset draws) comes from
 `sample_step_draws`, in one place, from one Generator; a caller may pass the
 draws instead (the tests pass the numbers the JAX functions drew).
@@ -24,12 +30,21 @@ import numpy as np
 import torch
 
 from ramdsir_tpu_torch.config import CONSISTENCY_WEIGHT, POLY_POWER, TrainConfig
-from ramdsir_tpu_torch.data.device_pipeline import gather_and_augment, sample_crop_draws
+from ramdsir_tpu_torch.data.device_pipeline import gather_and_augment, gather_prostate, sample_crop_draws
 from ramdsir_tpu_torch.models.norm import batch_statistics
-from ramdsir_tpu_torch.ops.losses import bce_with_logits_loss, dice_loss, kd_loss, mse_loss
+from ramdsir_tpu_torch.ops.losses import (
+    bce_with_logits_loss,
+    binary_kd_loss,
+    binary_mse_consistency,
+    dice_loss,
+    kd_loss,
+    mse_loss,
+)
 from ramdsir_tpu_torch.ops.ram import (
     ram_augment_fundus,
     ram_augment_fundus_banded,
+    ram_augment_prostate,
+    ram_augment_prostate_banded,
     sample_ram_ratios,
 )
 from ramdsir_tpu_torch.train.state import TrainState
@@ -39,7 +54,8 @@ def check_supported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for what this port does not run yet, naming
     the ROADMAP.md item."""
     unported = [
-        (cfg.dataset != "fundus", "--dataset prostate", "Prostate"),
+        (cfg.dataset != "fundus" and cfg.num_classes != 2,
+         f"--dataset {cfg.dataset} --num_classes {cfg.num_classes} (the softmax head)", "off-path variants"),
         (cfg.compute_dtype != "float32", "--compute_dtype bfloat16", "bf16 autocast"),
         (bool(cfg.num_devices) and cfg.num_devices > 1, "--num_devices > 1", "Multi-GPU DDP"),
         (cfg.remat, "--remat", "off-path variants"),
@@ -81,11 +97,12 @@ def make_train_step(
 ) -> Callable:
     """Build `train_step(state, batch, generator=None, draws=None) -> metrics`.
 
-    batch (NHWC): img (B,H,W,3) float [0,255], mask (B,H,W,2) float, and
-    either donor_amp (B,2b+1,b+1,3) banded donor amplitudes or donor
-    (B,H,W,3) [0,255] donor images.  With `device_data` (the device
-    pipeline's arrays) batch is instead {img_idx, donor_idx} index rows, and
-    the step gathers and scale-crops on the device.
+    batch (NHWC), fundus: img (B,H,W,3) float [0,255], mask (B,H,W,2) float,
+    and either donor_amp (B,2b+1,b+1,3) banded donor amplitudes or donor
+    (B,H,W,3) [0,255] donor images.  Prostate: img and donor in [-1, 1],
+    mask (B,H,W) integer labels.  With `device_data` (the device pipeline's
+    arrays) batch is instead {img_idx, donor_idx} index rows, and the step
+    gathers (and for fundus scale-crops) on the device.
 
     The step updates `state` in place (modules, BN running statistics, Adam,
     state.step) and returns its metrics as 0-d tensors under the JAX
@@ -93,6 +110,7 @@ def make_train_step(
     """
     cfg = cfg.resolve()
     check_supported(cfg)
+    is_fundus = cfg.dataset == "fundus"
     bsl = list(batch_size_list or cfg.batch_size_list)[: len(cfg.domain_idxs)]
     b_real = sum(bsl)
     domains = np.repeat(np.arange(len(bsl)), bsl)  # per-sample DSBN labels
@@ -116,21 +134,40 @@ def make_train_step(
     def nchw(x: torch.Tensor) -> torch.Tensor:
         return x.permute(0, 3, 1, 2).contiguous()
 
+    def seg_head(logits: torch.Tensor, mask: torch.Tensor):
+        """(repr, supervised loss, dice loss) of NCHW logits; `repr` feeds
+        the consistency loss: fundus sigmoid probabilities, prostate the
+        flat (B, H*W) logit-difference map."""
+        if is_fundus:
+            pred = torch.sigmoid(logits)
+            return pred, bce_with_logits_loss(logits, mask), dice_loss(pred, mask)
+        l = (logits[:, 1].float() - logits[:, 0].float()).reshape(logits.shape[0], -1)
+        m = mask.reshape(mask.shape[0], -1)
+        return l, bce_with_logits_loss(l, m), dice_loss(torch.sigmoid(l), m == 1)
+
+    def consistency(repr2: torch.Tensor, repr1: torch.Tensor) -> torch.Tensor:
+        if cfg.consistency_type == "kd":
+            # eps guards the log against float32 saturation
+            return (kd_loss if is_fundus else binary_kd_loss)(repr2, repr1, eps=1e-8)
+        return (mse_loss if is_fundus else binary_mse_consistency)(repr2, repr1)
+
+    sup_tag = "loss_bce" if is_fundus else "loss_ce"
+
     def loss_fn(state: TrainState, batch, draws):
         enc = state.models["encoder"]
         dec = state.models["seg_decoder"]
         metrics: Dict[str, torch.Tensor] = {}
         if cfg.ram:
             if "donor_amp" in batch:
-                img, img_freq = ram_augment_fundus_banded(
-                    batch["img"], batch["donor_amp"], draws["ratio"], use_dft=cfg.ram_banded_dft
-                )
+                aug = ram_augment_fundus_banded if is_fundus else ram_augment_prostate_banded
+                img, img_freq = aug(batch["img"], batch["donor_amp"], draws["ratio"], use_dft=cfg.ram_banded_dft)
             else:
-                img, img_freq = ram_augment_fundus(batch["img"], batch["donor"], draws["ratio"])
+                aug = ram_augment_fundus if is_fundus else ram_augment_prostate
+                img, img_freq = aug(batch["img"], batch["donor"], draws["ratio"])
         else:
-            img, img_freq = batch["img"] / 127.5 - 1.0, None
+            img, img_freq = (batch["img"] / 127.5 - 1.0 if is_fundus else batch["img"].float()), None
         img = nchw(img)
-        mask = nchw(batch["mask"])[:b_real]
+        mask = (nchw(batch["mask"]) if is_fundus else batch["mask"])[:b_real]
 
         if cfg.ram:
             # one forward over [clean; RAM]: per-half BN statistics, the two
@@ -143,21 +180,14 @@ def make_train_step(
         else:
             logits1 = dec(enc(img))[:b_real]
 
-        pred1 = torch.sigmoid(logits1)
-        loss_bce1, loss_dice1 = bce_with_logits_loss(logits1, mask), dice_loss(pred1, mask)
-        loss = loss_bce1 + loss_dice1
-        metrics.update(loss_bce_1=loss_bce1, loss_dice_1=loss_dice1)
+        pred1, loss_sup1, loss_dice1 = seg_head(logits1, mask)
+        loss = loss_sup1 + loss_dice1
+        metrics.update({f"{sup_tag}_1": loss_sup1, "loss_dice_1": loss_dice1})
 
         if cfg.ram:
-            pred2 = torch.sigmoid(logits2)
-            loss_bce2, loss_dice2 = bce_with_logits_loss(logits2, mask), dice_loss(pred2, mask)
-            loss = loss + loss_bce2 + loss_dice2
-            loss_cons = img.new_zeros(())
-            if cfg.consistency:
-                if cfg.consistency_type == "kd":
-                    loss_cons = kd_loss(pred2, pred1, eps=1e-8)
-                else:
-                    loss_cons = mse_loss(pred2, pred1)
+            pred2, loss_sup2, loss_dice2 = seg_head(logits2, mask)
+            loss = loss + loss_sup2 + loss_dice2
+            loss_cons = consistency(pred2, pred1) if cfg.consistency else img.new_zeros(())
             loss = loss + CONSISTENCY_WEIGHT * loss_cons
             avg_rec = img.new_zeros(())
             if cfg.rec:
@@ -168,12 +198,12 @@ def make_train_step(
                 loss_rec_d = rec_weights(rec_soft[:b_real].shape, img.device) @ per_row
                 avg_rec = torch.sum(loss_rec_d)
                 loss = loss + cfg.lambda_rec * avg_rec
-            metrics.update(
-                loss_bce_2=loss_bce2,
-                loss_dice_2=loss_dice2,
-                loss_consistency=loss_cons,
-                loss_rec=avg_rec / 4.0,  # the reference logs avg_rec_loss/4
-            )
+            metrics.update({
+                f"{sup_tag}_2": loss_sup2,
+                "loss_dice_2": loss_dice2,
+                "loss_consistency": loss_cons,
+                "loss_rec": avg_rec / 4.0,  # the reference logs avg_rec_loss/4
+            })
         metrics["loss"] = loss
         return loss, metrics
 
@@ -187,10 +217,13 @@ def make_train_step(
         if draws is None:
             if generator is None:
                 raise ValueError("train_step needs a generator or precomputed draws")
-            draws = sample_step_draws(generator, b_real, device, crop=device_data is not None)
+            draws = sample_step_draws(generator, b_real, device, crop=device_data is not None and is_fundus)
         if device_data is not None:
             idx = {k: torch.as_tensor(np.asarray(v), dtype=torch.long).to(device) for k, v in batch.items()}
-            batch = gather_and_augment(device_data, idx["img_idx"], idx["donor_idx"], draws, cfg.image_size)
+            if is_fundus:
+                batch = gather_and_augment(device_data, idx["img_idx"], idx["donor_idx"], draws, cfg.image_size)
+            else:
+                batch = gather_prostate(device_data, idx["img_idx"], idx["donor_idx"])
         for m in state.models.values():
             m.train()
         opt = state.optimizer

@@ -1,7 +1,7 @@
 """Contour overlays of eval predictions (port of `save_per_img` and what it
-needs from `ramdsir_tpu/utils/viz.py:31-142`).
+needs from `ramdsir_tpu/utils/viz.py:31-142`, and `untransform_prostate`).
 
-Used by the eval CLI's --save_result.  PIL is imported inside
+Used by the eval CLIs' --save_result.  PIL is imported inside
 `save_per_img`.
 """
 from __future__ import annotations
@@ -102,3 +102,11 @@ def save_per_img(
     path = os.path.join(output_dir, f"{base}.{ext}")
     Image.fromarray(overlay_contours(img, pred, gt)).save(path)
     return path
+
+
+def untransform_prostate(img: np.ndarray) -> np.ndarray:
+    """A slice min-max scaled to [0, 255] for the overlays (reference
+    dataset/utils.py:18-22)."""
+    img = np.asarray(img, np.float32)
+    lo, hi = img.min(), img.max()
+    return (img - lo) / max(hi - lo, 1e-12) * 255.0

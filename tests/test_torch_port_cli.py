@@ -1,5 +1,5 @@
-"""The port's train and eval CLIs on the CPU, its import hygiene, and its
-refusals."""
+"""The port's train and eval CLIs on the CPU (fundus and prostate), its
+import hygiene, and its refusals."""
 import ast
 import json
 import os
@@ -14,6 +14,7 @@ import torch
 
 from ramdsir_tpu_torch.cli.train import main as cli_main
 from ramdsir_tpu_torch.config import TrainConfig
+from tests._torch_threads import torch_threads, worker_threads  # noqa: F401 (module-scoped autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -21,6 +22,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = str(worker_threads())  # this worker's share of the cores
     return env
 
 
@@ -103,6 +105,87 @@ def test_cli_drive_on_cpu(trained_run):
                 assert torch.equal(v, payload[f"{mname}_state_dict"][k]), f"{mname}.{k}"
 
 
+@pytest.fixture(scope="module")
+def prostate_run(tmp_path_factory):
+    """The prostate drive: a synthetic slice tree at 32^2 and two test
+    volumes of 12 slices, two steps at batch 10 = 2 x 5, then the eval of
+    the volumes of target domain 5 at test batch 4."""
+    from ramdsir_tpu_torch.data.synthetic import make_prostate_tree, make_prostate_volumes
+
+    tmp_path = tmp_path_factory.mktemp("prostate_drive")
+    make_prostate_tree(str(tmp_path / "data"), per_domain=4, size=32)
+    make_prostate_volumes(str(tmp_path / "data"), per_domain=2, depth=12, size=32)
+    run = tmp_path / "run"
+    proc = subprocess.run(
+        [sys.executable, "-m", "ramdsir_tpu_torch.cli.train", "--device", "cpu",
+         "--data_root", str(tmp_path / "data"), "--dataset", "prostate",
+         "--domain_idxs", "0,1,2,3,4", "--test_domain_idx", "5", "--ram", "--rec",
+         "--consistency", "--consistency_type", "kd", "--save_path", str(run),
+         "--epochs", "1", "--max_steps", "2", "--test_batch_size", "4"],
+        capture_output=True, text=True, env=_env(), timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return tmp_path, proc
+
+
+def test_prostate_cli_drive_on_cpu(prostate_run):
+    """The prostate metrics keys, the eval's line and CSV row, the keep-best
+    file, and a .pth with five DSBN domains that the port loads strictly."""
+    tmp_path, proc = prostate_run
+    run = tmp_path / "run"
+    assert re.search(r"epoch 0: eval avg dice [0-9.]+ \| best [0-9.]+", proc.stdout), proc.stdout
+    summary = ast.literal_eval(proc.stdout.strip().splitlines()[-1])
+    assert 0.0 <= summary["dice"] <= 1.0 and summary["best"] == pytest.approx(100.0 * summary["dice"])
+    assert summary["eval_timing"]["volumes"] == 2 and summary["eval_timing"]["batches"] == 6
+    rows = [json.loads(line) for line in (run / "log" / "metrics.jsonl").read_text().splitlines()]
+    losses = [r for r in rows if "loss/loss" in r]
+    assert [r["step"] for r in losses] == [0, 1]
+    keys = {"loss_ce_1", "loss_dice_1", "loss_ce_2", "loss_dice_2", "loss_consistency", "loss_rec", "loss"}
+    assert all({k[5:] for k in r if k.startswith("loss/")} == keys for r in losses)
+    assert all(np.isfinite(r[f"loss/{k}"]) for r in losses for k in keys)
+    csv_rows = (run / "5_val_log.csv").read_text().splitlines()
+    assert csv_rows == [f"batch-size: ,4,0,dice coefficence: ,{summary['dice']}"]
+    assert [f for f in os.listdir(run) if f.startswith("model_")] == ["model_%.2f.pth" % summary["best"]]
+    from ramdsir_tpu_torch.train.checkpoint import load_torch_checkpoint
+    from ramdsir_tpu_torch.train.state import build_models
+
+    cfg = TrainConfig(dataset="prostate", domain_idxs=(0, 1, 2, 3, 4), test_domain_idx=5).resolve()
+    models = build_models(cfg)
+    load_torch_checkpoint(str(run / "final_model.pth"), models)  # strict per module
+    assert len(models["rec_decoder"].convu4.bn1.bns) == 5
+
+
+def _prostate_metrics(stdout):
+    return [float(v) for v in re.findall(r"==>(?:val_dice|average_hd|average_asd) : ([0-9.]+)", stdout)]
+
+
+def test_prostate_eval_cli_matches_jax_cli(prostate_run, tmp_path, capsys):
+    """The port's volume eval CLI on the CPU against the JAX package's on the
+    same .pth and volumes: the printed Dice, HD95 and ASD, the CSV log within
+    1e-3, and the overlays."""
+    from ramdsir_tpu.cli.test_prostate_volume import main as jax_eval_main
+
+    data, run = prostate_run[0] / "data", prostate_run[0] / "run"
+    args = ["--model_file", str(run / "final_model.pth"), "--data_dir", str(data), "--datasetTest", "5",
+            "--batch_size", "4", "--save_result"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "ramdsir_tpu_torch.cli.test_prostate_volume", "--device", "cpu",
+         "--test_prediction_save_path", str(tmp_path / "port"), *args],
+        capture_output=True, text=True, env=_env(), timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    printed = _prostate_metrics(proc.stdout)
+    assert len(printed) == 3, proc.stdout
+    want = jax_eval_main(["--test_prediction_save_path", str(tmp_path / "jax"), *args])
+    assert _prostate_metrics(capsys.readouterr().out) == printed
+    fields = (tmp_path / "port" / "test5_log.csv").read_text().splitlines()[0].split(",")
+    assert fields[2] == str(run / "final_model.pth")
+    for i, name in ((4, "dice"), (6, "hd"), (8, "asd")):
+        assert abs(float(fields[i]) - getattr(want, name)) <= 1e-3, name
+    overlays = sorted(os.listdir(tmp_path / "port" / "test5"))
+    assert overlays == sorted(os.listdir(tmp_path / "jax" / "test5")) and len(overlays) == 12
+
+
 def _six_metrics(stdout):
     return [float(v) for v in re.findall(r"==>(?:val_cup_dice|val_disc_dice|average_hd_OC|average_hd_OD|"
                                          r"average_asd_OC|average_asd_OD) : ([0-9.]+)", stdout)]
@@ -156,7 +239,8 @@ print(bad)
     names, bad = (ast.literal_eval(line) for line in proc.stdout.strip().splitlines()[-2:])
     assert len(names) >= 30, names
     for new in ("native", "ops.metrics", "ops.postprocess", "ops.resize", "data.loaders", "train.evaluate",
-                "train.checkpoint", "utils.viz", "cli.test_fundus_slice"):
+                "train.checkpoint", "utils.viz", "cli.test_fundus_slice", "data.nifti", "data.prostate",
+                "cli.test_prostate_volume"):
         assert f"ramdsir_tpu_torch.{new}" in names, new
     assert bad == [], bad
 
@@ -180,6 +264,17 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         eval_main(["--model_file", "unused.pth", "--test_prediction_save_path", "unused"])
+    from ramdsir_tpu_torch.cli.test_prostate_volume import main as prostate_eval_main
+    from ramdsir_tpu_torch.data.device_pipeline import DeviceProstatePipeline
+    from ramdsir_tpu_torch.data.synthetic import prostate_arrays
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main(["--save_path", "unused", "--ram", "--dataset", "prostate", "--domain_idxs", "0,1,2,3,4",
+                  "--test_domain_idx", "5"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DeviceProstatePipeline.from_arrays(prostate_arrays(per_domain=2, size=16), (0, 1, 2, 3, 4), [2] * 5, 5)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        prostate_eval_main(["--model_file", "unused.pth", "--test_prediction_save_path", "unused"])
 
 
 def test_failing_compiler_raises(monkeypatch):
@@ -206,7 +301,7 @@ def test_failing_compiler_raises(monkeypatch):
 @pytest.mark.parametrize(
     "flags",
     [
-        ["--dataset", "prostate"],
+        ["--dataset", "prostate", "--num_classes", "3"],
         ["--compute_dtype", "bfloat16"],
         ["--num_devices", "2"],
         ["--remat"],
@@ -218,6 +313,8 @@ def test_failing_compiler_raises(monkeypatch):
     ids=lambda f: f[0].lstrip("-"),
 )
 def test_unported_flags_raise(tmp_path, flags):
+    """Each flag whose feature is not ported raises before anything runs;
+    for --dataset, the prostate softmax head (more than two classes)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli_main(["--device", "cpu", "--save_path", str(tmp_path / "run"), "--ram", *flags])
     assert not (tmp_path / "run").exists()

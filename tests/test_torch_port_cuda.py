@@ -10,6 +10,7 @@ import torch
 
 from ramdsir_tpu_torch.ops import ram as tram
 from ramdsir_tpu_torch.ops import ram_mix
+from tests._torch_threads import torch_threads  # noqa: F401 (module-scoped autouse)
 
 pytestmark = pytest.mark.cuda
 
@@ -184,3 +185,29 @@ def test_eval_fundus_on_card_matches_cpu(eval_models, bn_adapt):
     assert res["cuda"].num == res["cpu"].num == 10 and res["cuda"].timing["batches"] == 3
     assert abs(res["cuda"].cup_dice - res["cpu"].cup_dice) <= 1e-3
     assert abs(res["cuda"].disc_dice - res["cpu"].disc_dice) <= 1e-3
+
+
+@pytest.mark.parametrize("bn_adapt", [False, True])
+def test_predict_volume_on_card_matches_cpu(eval_models, bn_adapt):
+    """A prostate volume of 12 slices at 64^2 in window batches of 4 (the
+    last with 2 zero rows): labels equal but for at most 1e-4 of the voxels,
+    volume Dice within 1e-3."""
+    import numpy as np
+
+    from ramdsir_tpu_torch.config import TrainConfig
+    from ramdsir_tpu_torch.data.synthetic import prostate_volumes
+    from ramdsir_tpu_torch.train.evaluate import eval_prostate_volumes, predict_volume
+    from ramdsir_tpu_torch.train.steps import make_predict_fn
+
+    _, models = eval_models
+    cfg = TrainConfig(dataset="prostate", rec=False, ram=False, device="cpu").resolve()
+    volumes = prostate_volumes(per_domain=1, depth=12, size=EVAL_S, seed=2, domains=["HK"])["HK"]
+    _, vol, mask = volumes[0]
+    image = vol.astype(np.float64)
+    image = (2.0 * (image - image.min()) / (image.max() - image.min()) - 1.0).astype(np.float32)
+    predict = {dev: make_predict_fn(cfg, models[dev], bn_adapt=bn_adapt) for dev in ("cuda", "cpu")}
+    labels = {dev: predict_volume(p, image, mask, batch_size=4) for dev, p in predict.items()}
+    assert float(np.mean(labels["cuda"] != labels["cpu"])) <= 1e-4
+    res = {dev: eval_prostate_volumes(p, volumes, 5, batch_size=4) for dev, p in predict.items()}
+    assert res["cuda"].num == 1 and res["cuda"].timing["batches"] == 3
+    assert abs(res["cuda"].dice - res["cpu"].dice) <= 1e-3

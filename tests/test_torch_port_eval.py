@@ -37,6 +37,7 @@ from ramdsir_tpu_torch.train.checkpoint import BestKeeper, load_torch_checkpoint
 from ramdsir_tpu_torch.train.state import build_models
 from ramdsir_tpu_torch.train.steps import make_predict_fn
 from ramdsir_tpu_torch.utils.torch_compat import export_torch_checkpoint, jax_params_to_torch
+from tests._torch_threads import torch_threads  # noqa: F401 (module-scoped autouse)
 
 S = 32
 # the repo's tolerance for probabilities of one float32 forward computed two
@@ -138,18 +139,25 @@ def test_q16_matches_jax():
 # --- the predictor -------------------------------------------------------------
 
 
-def _calibrated(cfg, state, models, rng):
-    """Running statistics set to one batch's own statistics, so that eval
-    mode normalises activations to O(1) and probabilities are not saturated."""
-    x = jnp.asarray(rng.uniform(0, 255, (8, S, S, 3)).astype(np.float32) / 127.5 - 1.0)
-    feats, enc_stats = _apply_with_stats(models["encoder"], state.params["encoder"],
-                                         state.batch_stats["encoder"], x, train=True)
-    _, dec_stats = _apply_with_stats(models["seg_decoder"], state.params["seg_decoder"],
-                                     state.batch_stats["seg_decoder"], feats, train=True)
-    new = {"encoder": enc_stats, "seg_decoder": dec_stats}
+def _calibrated(cfg, state, models, rng, x=None):
+    """Running statistics set to one batch's own statistics (x, NHWC in
+    [-1, 1], or 8 uniform images), so that eval mode normalises activations
+    to O(1) and probabilities are not saturated."""
+    if x is None:
+        x = rng.uniform(0, 255, (8, S, S, 3)).astype(np.float32) / 127.5 - 1.0
+
+    @jax.jit
+    def updated(params, batch_stats, x):
+        feats, enc_stats = _apply_with_stats(models["encoder"], params["encoder"],
+                                             batch_stats["encoder"], x, train=True)
+        _, dec_stats = _apply_with_stats(models["seg_decoder"], params["seg_decoder"],
+                                         batch_stats["seg_decoder"], feats, train=True)
+        return {"encoder": enc_stats, "seg_decoder": dec_stats}
+
+    new = updated(state.params, state.batch_stats, jnp.asarray(x))
     # the update was new = 0.9 * old + 0.1 * batch
-    stats = jax.tree.map(lambda n, o: (n - 0.9 * o) / 0.1, new, state.batch_stats)
-    return state.replace(batch_stats=stats)
+    stats = jax.tree.map(lambda n, o: (n - 0.9 * o) / 0.1, new, {k: state.batch_stats[k] for k in new})
+    return state.replace(batch_stats=dict(state.batch_stats, **stats))
 
 
 def _weights(head_scale):

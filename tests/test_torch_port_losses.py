@@ -7,6 +7,7 @@ import torch
 
 from ramdsir_tpu.ops import losses as jl
 from ramdsir_tpu_torch.ops import losses as tl
+from tests._torch_threads import torch_threads  # noqa: F401 (module-scoped autouse)
 
 SHAPE = (2, 16, 16, 2)
 

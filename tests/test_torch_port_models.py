@@ -20,6 +20,7 @@ from ramdsir_tpu.utils.torch_compat import flax_module_to_torch_sd
 from ramdsir_tpu_torch.models.norm import BatchNorm, DomainSpecificBatchNorm
 from ramdsir_tpu_torch.models.unet import Decoder, Encoder, RecDecoder
 from ramdsir_tpu_torch.utils.torch_compat import jax_params_to_torch
+from tests._torch_threads import torch_threads  # noqa: F401 (module-scoped autouse)
 
 N, HW = 8, 32
 # float32 convolutions by two libraries (XLA, oneDNN) summed in different

@@ -14,6 +14,7 @@ from ramdsir_tpu_torch.config import TrainConfig
 from ramdsir_tpu_torch.train.state import init_state
 from ramdsir_tpu_torch.train.steps import make_train_step
 from tests.test_torch_port_step import BSL, CFG, HW, METRICS
+from tests._torch_threads import torch_threads  # noqa: F401 (module-scoped autouse)
 
 
 def test_scale_crop_matches_jax():

@@ -18,6 +18,7 @@ from ramdsir_tpu.ops.ram_pallas import mix_spectrum_pallas
 from ramdsir_tpu_torch.ops import ram as tram
 from ramdsir_tpu_torch.ops import ram_mix
 from tests.test_ram import oracle_ram
+from tests._torch_threads import torch_threads  # noqa: F401 (module-scoped autouse)
 
 SHAPES = [(64, 64), (65, 63), (32, 48)]
 TINY = float(np.finfo(np.float32).tiny)

@@ -17,6 +17,7 @@ import chip_smoke
 from ramdsir_tpu.ops import ram as jram
 from ramdsir_tpu.ops.ram_pallas import mix_spectrum_pallas
 from ramdsir_tpu_torch.ops import ram_mix
+from tests._torch_threads import torch_threads  # noqa: F401 (module-scoped autouse)
 
 NORMAL, TINY, ZERO, SUBNORMAL_SQUARE = range(4)
 

@@ -23,6 +23,7 @@ from ramdsir_tpu_torch.config import TrainConfig
 from ramdsir_tpu_torch.train.state import init_state
 from ramdsir_tpu_torch.train.steps import make_train_step
 from ramdsir_tpu_torch.utils.torch_compat import jax_params_to_torch
+from tests._torch_threads import torch_threads  # noqa: F401 (module-scoped autouse)
 
 BSL = [2, 2, 2]
 B = sum(BSL)
@@ -129,24 +130,22 @@ def trajectory(runs):
 METRICS = ("loss_bce_1", "loss_dice_1", "loss_bce_2", "loss_dice_2", "loss_consistency", "loss_rec", "loss", "lr")
 
 
-def test_step_metrics(one_step):
-    jm, tm = one_step["jax"][0], one_step["port"][0]
-    assert set(METRICS) <= set(tm) and set(tm) - {"_grads"} == set(jm) - {"_grads"}
-    for k in METRICS:
-        # tests/test_torch_step_parity.py:172
+def check_step_metrics(jm, tm, keys=METRICS):
+    """One step's metrics: the same keys, each value within the bound of
+    tests/test_torch_step_parity.py:172."""
+    assert set(keys) <= set(tm) and set(tm) - {"_grads"} == set(jm) - {"_grads"}
+    for k in keys:
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=2e-4, atol=2e-5, err_msg=k)
-    assert one_step["steps_taken"] == len(one_step["port"])
 
 
-def test_step_gradients(one_step):
+def check_step_gradients(jax_grads, tg):
     """Every gradient, with the rule of tests/test_torch_step_parity.py:175-217:
     conv biases ahead of a BN have mathematically zero gradients (fp noise
     only), and the first stages' BN affine gradients are ill-conditioned in
     float32, hence the absolute floor, the 2% relative term and the
     tolerated 1e-4 fraction of stray elements; a wrong loss term, slice or
     statistic moves whole tensors and fails."""
-    jg = _torch_layout(one_step["jax"][0]["_grads"])
-    tg = one_step["port"][0]["_grads"]
+    jg = _torch_layout(jax_grads)
     dots = norm_a = norm_b = 0.0
     for name in NAMES:
         assert set(jg[name]) == set(tg[name]), name
@@ -162,18 +161,29 @@ def test_step_gradients(one_step):
     assert dots / np.sqrt(norm_a * norm_b) > 0.9999
 
 
-def test_step_params_and_running_stats(one_step):
+def check_params_and_running_stats(jax_params, port_params, lr):
     """Params within 2.5*lr (the first Adam step is ~lr*sign(g), so a
     near-zero gradient may flip; tests/test_torch_step_parity.py:232) and BN
     / DSBN running statistics at rtol 1e-4, atol 1e-5 (:248)."""
-    lr = one_step["cfg"].lr
-    jax_params, port_params = one_step["params"][0]
     for name in NAMES:
         want, got = jax_params[name], port_params[name]
         assert set(want) == set(got), name
         for k, w in want.items():
             tol = dict(rtol=1e-4, atol=1e-5) if "running" in k else dict(atol=2.5 * lr)
             np.testing.assert_allclose(got[k], w, err_msg=f"{name}.{k}", **tol)
+
+
+def test_step_metrics(one_step):
+    check_step_metrics(one_step["jax"][0], one_step["port"][0])
+    assert one_step["steps_taken"] == len(one_step["port"])
+
+
+def test_step_gradients(one_step):
+    check_step_gradients(one_step["jax"][0]["_grads"], one_step["port"][0]["_grads"])
+
+
+def test_step_params_and_running_stats(one_step):
+    check_params_and_running_stats(*one_step["params"][0], one_step["cfg"].lr)
 
 
 def test_trajectory(trajectory):
