@@ -36,20 +36,35 @@ result line):
               seconds, forward ms per batch (CUDA-synchronised), readback
               ms, host ms per image, Dice, the best file (which must load
               strictly) and the CSV rows; eval adds no K1 launch
+  bf16_path   the same trainer in bfloat16 (--compute_dtype and
+              predict_dtype bfloat16), 21 steps (one epoch, one eval), with
+              the same checks, beside the float32 default run's median
+              step, img/s and peak memory
   eval_cli    the eval CLI's path on the default run's final_model.pth: the
               loader, BN-adapted prediction, eval_fundus with distances over
               the same split; the six metrics, the timings, the host's share
               of the eval's wall time, and where the forward's device time
-              goes (torch.profiler over four batches of 8)
-  profile     where a default fundus step's and a prostate step's device
-              time goes (torch.profiler over 5 steps each)
+              goes (torch.profiler over four batches of 8); the same path
+              from final_model.ckpt must give the same six metrics
+  profile     where a fundus step's and a prostate step's device time goes,
+              float32 and bfloat16 (torch.profiler over 5 steps each)
   step_parity one step with K1 and the same step with the plain mix, from
               the same state and draws (TF32 off, deterministic cuDNN)
+  bf16_step_parity
+              the same for a bfloat16 step, then the bfloat16 step against
+              the float32 one from the same state (losses within the spread
+              the CPU tests measure)
   eval_parity the same weights and 16 test images on the card and on the
               CPU (TF32 off, deterministic cuDNN): probabilities within 1e-4
               in both BN modes, tail batch included, Dice within 1e-3, and
               the host library's post-processing and distances bit-equal to
               their scipy plain versions on the eval's own maps
+  resume      the default run's final_model.ckpt loaded into a fresh state
+              equals the file; saved and loaded again, every tensor and Adam
+              moment is bit-equal, and a step from it has the same losses and
+              running statistics bit for bit; then `fit` resumed from the
+              file for 5 more steps (5 K1 launches, the lr continuing the
+              schedule)
   prostate_path
               the prostate trainer (`fit`) at the reference configuration:
               domains 0-4 -> target 5, batch 10 = 2 x 5, 384^2, U-Net n=16,
@@ -61,6 +76,9 @@ result line):
               2 zero rows).  K1 launches == steps, all on delta_flat, none in
               eval; the 7 losses finite every step; 2 CSV rows; Dice in
               [0, 1]; the final and keep-best .pth load strictly
+  prostate_bf16_path
+              the same in bfloat16, 12 steps (one eval, at the last), beside
+              the float32 run's figures
   prostate_eval_cli
               cli/test_prostate_volume.py's main on that run's
               final_model.pth: BN adaptation, Dice, HD95, ASD, the timing
@@ -75,8 +93,9 @@ result line):
               bit-equal to scipy on the card's predictions
 Then the card line from nvidia-smi, the kernels line, and the result line.
 Run artefacts go to chiprun_out/chip_smoke/ (prostate: chip_smoke/prostate/);
-the .pth files and the NIfTI volumes are deleted at exit.
+the .pth and .ckpt files and the NIfTI volumes are deleted at exit.
 """
+import contextlib
 import json
 import os
 import re
@@ -99,17 +118,20 @@ PEAK_BYTES_PER_S = [("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12
 PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 
 B, C, S = 16, 3, 256  # main path: batch 16, RGB, 256^2
-STEPS = {"default": 30, "ram_use_pallas": 10, "no_ram_banded_dft": 10}
+STEPS = {"default": 30, "ram_use_pallas": 10, "no_ram_banded_dft": 10, "bf16": 21}  # bf16: one epoch
 EVAL_N, EVAL_SIZE = 50, 512  # in-memory test split: images, original size
 PB, PS = 10, 384  # prostate path: batch 10 = 2 x 5, 384^2
 PROSTATE_STEPS, PROSTATE_SLICES = 25, 40  # 20 steps an epoch: evals at step 20 and 25
+PROSTATE_BF16_STEPS = 12  # one eval, at the last step
+RESUME_STEPS = 5  # steps the resumed default run takes
 PROSTATE_VOLUMES, PROSTATE_DEPTH, PROSTATE_TEST_BATCH = 3, 32, 8
 PROSTATE_OUT = os.path.join(OUT, "prostate")
 DEVICE = "cuda"  # the prostate phases' device (a rehearsal on the CPU may set "cpu")
 TIMED = (f"full@{S}x{S}", f"band@{S}x{S}", f"delta@{S}x{S}", f"delta@{PS}x{PS}")
 
 
-MAIN_PATHS = {"default": "delta_flat", "ram_use_pallas": "full_vec", "no_ram_banded_dft": "strided"}
+MAIN_PATHS = {"default": "delta_flat", "ram_use_pallas": "full_vec", "no_ram_banded_dft": "strided", "bf16": "delta_flat"}
+BF16 = {"compute_dtype": "bfloat16", "predict_dtype": "bfloat16"}
 MODE_PATHS = {"full": "full_vec", "band": "strided", "delta": "delta_flat"}
 
 
@@ -425,7 +447,7 @@ def phase_ram_oracle(torch, tram, np):
 
 
 def main_path_config(TrainConfig, name, run_dir):
-    extra = {"ram_use_pallas": {"ram_use_pallas": True}, "no_ram_banded_dft": {"ram_banded_dft": False}}
+    extra = {"ram_use_pallas": {"ram_use_pallas": True}, "no_ram_banded_dft": {"ram_banded_dft": False}, "bf16": BF16}
     return TrainConfig(
         dataset="fundus", domain_idxs=(1, 2, 3), test_domain_idx=0, ram=True, rec=True,
         is_out_domain=True, consistency=True, consistency_type="kd", image_size=S,
@@ -495,8 +517,11 @@ def phase_main_path(torch, np, ram_mix, arrays, testset):
             best=summary["best"], best_file=os.path.basename(summary["best_checkpoint"]),
             csv_rows=len(csv_rows), evals=len(evals), eval_images=len(testset), eval_original_size=EVAL_SIZE,
             test_batch=cfg.test_batch_size, **eval_fields(summary["eval_timing"], len(testset)),
+            compute_dtype=cfg.compute_dtype, predict_dtype=cfg.predict_dtype,
         )
-        emit("main_path", **entry)
+        if name == "bf16":
+            entry["float32"] = {k: runs["default"][k] for k in ("median_step_ms", "images_per_sec", "peak_memory_bytes")}
+        emit("bf16_path" if name == "bf16" else "main_path", **entry)
         if not finite:
             raise SystemExit(f"main path {name}: non-finite or missing losses")
         expected_evals = (steps - 1) // len(pipe) + 1  # one an epoch, and one at the last step
@@ -522,8 +547,7 @@ def phase_step_parity(torch, np, ram_mix, arrays):
     gradient may flip (tests/test_torch_step_parity.py:232)."""
     from ramdsir_tpu_torch.config import TrainConfig
     from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
-    from ramdsir_tpu_torch.train.state import init_state
-    from ramdsir_tpu_torch.train.steps import make_train_step, sample_step_draws
+    from ramdsir_tpu_torch.train.steps import sample_step_draws
 
     set_exact_float32(torch)
     results = {}
@@ -535,26 +559,10 @@ def phase_step_parity(torch, np, ram_mix, arrays):
         )
         row = next(iter(pipe))
         draws = sample_step_draws(torch.Generator().manual_seed(5), sum(cfg.batch_size_list), torch.device("cuda"))
-        out = {}
-        for impl in ("kernel", "plain"):
-            state = init_state(cfg, torch.Generator().manual_seed(cfg.seed), "cuda")
-            step = make_train_step(cfg, total_iters=1000, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data)
-            if impl == "plain":
-                with mock.patch.object(ram_mix, "mix_spectrum", ram_mix.mix_spectrum_plain):
-                    m = step(state, row, draws=draws)
-            else:
-                m = step(state, row, draws=draws)
-            out[impl] = (
-                {k: float(v) for k, v in m.items()},
-                {f"{n}.{k}": v.detach().clone() for n, mod in state.models.items() for k, v in mod.state_dict().items()},
-            )
-        (mk, pk), (mp, pp) = out["kernel"], out["plain"]
-        loss_rel = max(abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-6) for k in mk)
-        param_err = max(float((pk[k] - pp[k]).abs().max()) for k in pk if "running" not in k)
-        stats = [k for k in pk if "running" in k]
-        stat_err = max(float((pk[k] - pp[k]).abs().max()) for k in stats)
-        stats_ok = all(torch.allclose(pk[k], pp[k], rtol=1e-4, atol=1e-5) for k in stats)
-        entry = dict(run=name, loss=mk["loss"], loss_max_rel=loss_rel, loss_tol=1e-5,
+        out = {impl: step_from_seed(torch, ram_mix, cfg, pipe, row, draws, plain=impl == "plain")[:2]
+               for impl in ("kernel", "plain")}
+        loss_rel, param_err, stat_err, stats_ok = step_distance(torch, out["kernel"], out["plain"])
+        entry = dict(run=name, loss=out["kernel"][0]["loss"], loss_max_rel=loss_rel, loss_tol=1e-5,
                      params_max_abs=param_err, params_tol=2.5 * cfg.lr,
                      running_stats_max_abs=stat_err, stats_tol="rtol 1e-4, atol 1e-5")
         emit("step_parity", **entry)
@@ -564,15 +572,178 @@ def phase_step_parity(torch, np, ram_mix, arrays):
     return results
 
 
-def eval_models(torch, path, device):
-    """The eval CLI's modules (encoder, seg decoder) from a .pth, on device."""
+def step_from_seed(torch, ram_mix, cfg, pipe, row, draws, plain=False, load=None, device="cuda"):
+    """One step from the seed's fresh state (or from the `.ckpt` `load`),
+    through K1 or through the plain mix: its metrics, its state dict and its
+    K1 launches."""
+    from ramdsir_tpu_torch.train.checkpoint import load_checkpoint
+    from ramdsir_tpu_torch.train.state import init_state
+    from ramdsir_tpu_torch.train.steps import make_train_step
+
+    state = init_state(cfg, torch.Generator().manual_seed(cfg.seed), device)
+    if load:
+        load_checkpoint(load, state)
+    step = make_train_step(cfg, total_iters=1000, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data)
+    before = ram_mix.launches
+    with mock.patch.object(ram_mix, "mix_spectrum", ram_mix.mix_spectrum_plain) if plain else contextlib.nullcontext():
+        m = step(state, row, draws=draws)
+    sd = {f"{n}.{k}": v.detach().clone() for n, mod in state.models.items() for k, v in mod.state_dict().items()}
+    return {k: float(v) for k, v in m.items()}, sd, ram_mix.launches - before
+
+
+def step_distance(torch, a, b):
+    """(largest relative loss difference, largest parameter difference,
+    largest running-statistic difference, running statistics within rtol
+    1e-4 / atol 1e-5) between two steps' (metrics, state dict)."""
+    (ma, sa), (mb, sb) = a, b
+    loss_rel = max(abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-6) for k in ma)
+    param_err = max(float((sa[k] - sb[k]).abs().max()) for k in sa if "running" not in k)
+    stats = [k for k in sa if "running" in k]
+    stat_err = max(float((sa[k] - sb[k]).abs().max()) for k in stats)
+    return loss_rel, param_err, stat_err, all(torch.allclose(sa[k], sb[k], rtol=1e-4, atol=1e-5) for k in stats)
+
+
+BF16_LOSS_TOL = {"loss": 5e-3, "term": 5e-2}  # tests/test_torch_port_bf16.py
+
+
+def phase_bf16_step_parity(torch, np, ram_mix, arrays):
+    """One bfloat16 step through K1 and through the plain mix from the same
+    state and draws (TF32 off, deterministic cuDNN): K1 is bit-equal to its
+    plain version, so the two agree within step_parity's float32 bounds.
+    Then the float32 step from the same state: each loss within the spread
+    of bfloat16 from float32 that the CPU tests measure (JAX's own bfloat16
+    step lies up to 4.1e-2 from its float32 one by term, 2.4e-3 in total, at
+    32^2): 5e-2 by term, 5e-3 for the total."""
     from ramdsir_tpu_torch.config import TrainConfig
-    from ramdsir_tpu_torch.train.checkpoint import load_torch_checkpoint
+    from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
+    from ramdsir_tpu_torch.train.steps import sample_step_draws
+
+    set_exact_float32(torch)
+    cfg16 = main_path_config(TrainConfig, "bf16", os.path.join(OUT, "parity"))
+    cfg32 = main_path_config(TrainConfig, "default", os.path.join(OUT, "parity"))
+    pipe = DeviceFundusPipeline.from_arrays(
+        arrays, cfg16.domain_idxs, cfg16.batch_size_list, cfg16.test_domain_idx,
+        is_out_domain=True, seed=cfg16.seed, precompute_donor_amp=cfg16.ram_precompute_donor_amp, device="cuda",
+    )
+    row = next(iter(pipe))
+    draws = sample_step_draws(torch.Generator().manual_seed(5), sum(cfg16.batch_size_list), torch.device("cuda"))
+    steps = {name: step_from_seed(torch, ram_mix, cfg, pipe, row, draws, plain=plain)
+             for name, cfg, plain in (("kernel", cfg16, False), ("plain", cfg16, True), ("float32", cfg32, False))}
+    launches = {name: s[2] for name, s in steps.items()}
+    loss_rel, param_err, stat_err, stats_ok = step_distance(torch, steps["kernel"][:2], steps["plain"][:2])
+    m16, m32 = steps["kernel"][0], steps["float32"][0]
+    spread = {k: abs(m16[k] - m32[k]) / max(abs(m32[k]), 1e-6) for k in m16 if k != "lr"}
+    spread_ok = all(v <= BF16_LOSS_TOL["loss" if k == "loss" else "term"] for k, v in spread.items())
+    entry = dict(run="bf16", loss=m16["loss"], loss_max_rel=loss_rel, loss_tol=1e-5, params_max_abs=param_err,
+                 params_tol=2.5 * cfg16.lr, running_stats_max_abs=stat_err, stats_tol="rtol 1e-4, atol 1e-5",
+                 k1_launches=launches, float32_loss=m32["loss"], bf16_vs_float32_rel=spread,
+                 bf16_vs_float32_tol=BF16_LOSS_TOL)
+    emit("bf16_step_parity", **entry)
+    if launches != {"kernel": 1, "plain": 0, "float32": 1}:
+        raise SystemExit(f"bf16 step parity: K1 launches {launches}")
+    if not (loss_rel <= 1e-5 and param_err <= 2.5 * cfg16.lr and stats_ok):
+        raise SystemExit(f"bf16 step parity: kernel and plain steps disagree: {entry}")
+    if not spread_ok:
+        raise SystemExit(f"bf16 step parity: the bfloat16 and float32 losses part by {spread}")
+
+
+def phase_resume(torch, np, ram_mix, arrays, testset, steps_done):
+    """The default run's final_model.ckpt loaded into a fresh state on the
+    card equals the file; saved again and loaded into another fresh state,
+    every parameter, buffer and Adam moment is bit-equal.  One step from
+    each (same row and draws, TF32 off, deterministic cuDNN): the forward
+    (losses, running statistics) bit-equal, and the parameters as close as
+    two steps from the same loaded state come (the bilinear upsample's
+    backward adds with atomics, so two steps from one state may part by a
+    flipped Adam sign, within step_parity's 2.5*lr).  Then `fit` resumed
+    from the file with max_steps = its steps + RESUME_STEPS: that many steps,
+    as many K1 launches, all on delta_flat, the lr going on along the
+    schedule."""
+    import dataclasses
+
+    from ramdsir_tpu_torch.config import TrainConfig
+    from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
+    from ramdsir_tpu_torch.train.checkpoint import load_checkpoint, read_checkpoint, save_checkpoint
+    from ramdsir_tpu_torch.train.loop import fit
+    from ramdsir_tpu_torch.train.state import init_state, state_to_tree
+    from ramdsir_tpu_torch.train.steps import poly_lr, sample_step_draws
+
+    set_exact_float32(torch)
+    src = os.path.join(OUT, "default", "final_model.ckpt")
+    run_dir = os.path.join(OUT, "resume")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    cfg = main_path_config(TrainConfig, "default", run_dir)
+    a = init_state(cfg, torch.Generator().manual_seed(cfg.seed), "cuda")
+    load_checkpoint(src, a)
+
+    def same(x, y):
+        if isinstance(x, dict):
+            return isinstance(y, dict) and x.keys() == y.keys() and all(same(x[k], y[k]) for k in x)
+        return x.dtype == y.dtype and x.shape == y.shape and np.array_equal(x, y)
+
+    file_equal = same(read_checkpoint(src)["state"], state_to_tree(a))
+    copy = os.path.join(run_dir, "state.ckpt")
+    save_checkpoint(copy, a)
+    b = init_state(cfg, torch.Generator().manual_seed(cfg.seed + 1), "cuda")
+    load_checkpoint(copy, b)
+
+    def tensors(state):
+        out = {f"{n}.{k}": v for n, mod in state.models.items() for k, v in mod.state_dict().items()}
+        for i, p in enumerate(p for mod in state.models.values() for p in mod.parameters()):
+            out.update({f"adam{i}.{k}": v for k, v in state.optimizer.state[p].items()})
+        return out
+
+    ta, tb = tensors(a), tensors(b)
+    differing = [k for k in ta if not torch.equal(ta[k].cpu(), tb[k].cpu())]
+    pipe = DeviceFundusPipeline.from_arrays(
+        arrays, cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx,
+        is_out_domain=True, seed=cfg.seed, precompute_donor_amp=cfg.ram_precompute_donor_amp, device="cuda",
+    )
+    row = next(iter(pipe))
+    draws = sample_step_draws(torch.Generator().manual_seed(6), sum(cfg.batch_size_list), torch.device("cuda"))
+    one = {name: step_from_seed(torch, ram_mix, cfg, pipe, row, draws, load=path)[:2]
+           for name, path in (("original", src), ("again", src), ("resaved", copy))}
+    loss_rel, param_err, stat_err, _ = step_distance(torch, one["resaved"], one["original"])
+    floor = step_distance(torch, one["again"], one["original"])[1]
+    forward_equal = loss_rel == 0.0 and stat_err == 0.0
+
+    ram_mix.launches = 0
+    ram_mix.launches_by_path.update(dict.fromkeys(ram_mix.launches_by_path, 0))
+    summary = fit(dataclasses.replace(cfg, checkpoint_resume=src), max_steps=steps_done + RESUME_STEPS,
+                  pipeline=pipe, testset=testset)
+    launches = ram_mix.launches
+    paths = {p: k for p, k in ram_mix.launches_by_path.items() if k}
+    rows = [json.loads(line) for line in open(os.path.join(run_dir, "log", "metrics.jsonl"))]
+    lrs = [(r["step"], r["lr"]) for r in rows if "lr" in r]
+    want_lr = poly_lr(cfg.lr, steps_done, len(pipe) * cfg.epochs)
+    entry = dict(checkpoint=os.path.relpath(src, REPO), tensors=len(ta), file_equal=file_equal,
+                 round_trip_differing=len(differing), step_losses_bit_equal=loss_rel == 0.0,
+                 step_running_stats_bit_equal=stat_err == 0.0, step_params_max_abs=param_err,
+                 step_params_bit_equal=param_err == 0.0, same_state_params_max_abs=floor, params_tol=2.5 * cfg.lr,
+                 resumed_steps=summary["steps"] - steps_done, k1_launches=launches, k1_paths=paths,
+                 first_lr=lrs[0] if lrs else None, expected_lr=[steps_done, want_lr])
+    emit("resume", **entry)
+    if not file_equal or differing:
+        raise SystemExit(f"resume: the loaded state differs from the file ({file_equal}) or after a round trip: {differing[:5]}")
+    if not forward_equal or param_err > 2.5 * cfg.lr:
+        raise SystemExit(f"resume: a step from the re-loaded state differs: {entry}")
+    if summary["steps"] != steps_done + RESUME_STEPS or launches != RESUME_STEPS or paths != {"delta_flat": RESUME_STEPS}:
+        raise SystemExit(f"resume: fit took {summary['steps']} steps with {launches} K1 launches on {paths}")
+    if not lrs or lrs[0][0] != steps_done or abs(lrs[0][1] - want_lr) > 1e-6 * want_lr:  # logged in float32
+        raise SystemExit(f"resume: first logged lr {lrs[:1]}, expected {want_lr} at step {steps_done}")
+
+
+def eval_models(torch, path, device):
+    """The eval CLI's modules (encoder, seg decoder) from a .pth or a .ckpt,
+    on device, through the eval CLIs' loader."""
+    from ramdsir_tpu_torch.config import TrainConfig
+    from ramdsir_tpu_torch.train.checkpoint import load_any_checkpoint
     from ramdsir_tpu_torch.train.state import build_models
 
     cfg = TrainConfig(dataset="fundus", rec=False, ram=False, image_size=S, device=device).resolve()
     models = build_models(cfg)
-    load_torch_checkpoint(path, models)
+    load_any_checkpoint(path, models)
     for m in models.values():
         m.to(device)
     return cfg, models
@@ -580,23 +751,31 @@ def eval_models(torch, path, device):
 
 def phase_eval_cli(torch, np, testset):
     """cli/test_fundus_slice.py's path on the default run's final model (the
-    CLI itself reads PNGs, which this machine cannot decode)."""
+    CLI itself reads PNGs, which this machine cannot decode), from
+    final_model.pth and from final_model.ckpt: the six metrics must be
+    equal."""
     from ramdsir_tpu_torch.train.evaluate import eval_fundus
     from ramdsir_tpu_torch.train.steps import make_predict_fn
 
-    path = os.path.join(OUT, "default", "final_model.pth")
-    cfg, models = eval_models(torch, path, "cuda")
-    predict = make_predict_fn(cfg, models, bn_adapt=True)
-    res = eval_fundus(predict, testset, 0, batch_size=8, image_size=S, with_distances=True)
-    torch.cuda.synchronize()
-    six = {k: getattr(res, k) for k in ("cup_dice", "disc_dice", "hd_oc", "hd_od", "asd_oc", "asd_od")}
-    forward = profile_eval_forward(torch, predict, np.stack([x["img"] for x in testset]))
-    emit("eval_cli", model_file=os.path.relpath(path, REPO), bn_adapt=True, with_distances=True, num=res.num,
-         test_batch=8, eval_original_size=EVAL_SIZE, **six, **eval_fields(res.timing, res.num),
-         forward_profile=forward)
+    scores = {}
+    for ext in ("pth", "ckpt"):
+        path = os.path.join(OUT, "default", f"final_model.{ext}")
+        cfg, models = eval_models(torch, path, "cuda")
+        predict = make_predict_fn(cfg, models, bn_adapt=True)
+        res = eval_fundus(predict, testset, 0, batch_size=8, image_size=S, with_distances=True)
+        torch.cuda.synchronize()
+        scores[ext] = {k: getattr(res, k) for k in ("cup_dice", "disc_dice", "hd_oc", "hd_od", "asd_oc", "asd_od")}
+        if ext == "pth":
+            six, timing, num, pth_path = scores[ext], res.timing, res.num, path
+            forward = profile_eval_forward(torch, predict, np.stack([x["img"] for x in testset]))
+    emit("eval_cli", model_file=os.path.relpath(pth_path, REPO), bn_adapt=True, with_distances=True, num=num,
+         test_batch=8, eval_original_size=EVAL_SIZE, **six, **eval_fields(timing, num),
+         ckpt_metrics_equal=scores["ckpt"] == six, forward_profile=forward)
     finite = all(np.isfinite(v) for v in six.values())
-    if res.num != len(testset) or not finite or not all(0.0 <= six[k] <= 1.0 for k in ("cup_dice", "disc_dice")):
-        raise SystemExit(f"eval_cli: {res.num} images, metrics {six}")
+    if num != len(testset) or not finite or not all(0.0 <= six[k] <= 1.0 for k in ("cup_dice", "disc_dice")):
+        raise SystemExit(f"eval_cli: {num} images, metrics {six}")
+    if scores["ckpt"] != six:
+        raise SystemExit(f"eval_cli: final_model.ckpt scores {scores['ckpt']}, final_model.pth {six}")
 
 
 def phase_eval_parity(torch, np, testset, n=16, batch=7):
@@ -659,12 +838,12 @@ def phase_eval_parity(torch, np, testset, n=16, batch=7):
 # --- the prostate path ------------------------------------------------------------
 
 
-def prostate_config(TrainConfig, run_dir, data_root):
+def prostate_config(TrainConfig, run_dir, data_root, bf16=False):
     """The reference prostate configuration (bench.py:72-74, :193-210)."""
     return TrainConfig(
         dataset="prostate", domain_idxs=(0, 1, 2, 3, 4), test_domain_idx=5, ram=True, rec=True,
         consistency=True, consistency_type="kd", image_size=PS, save_path=run_dir, data_root=data_root,
-        device=DEVICE,
+        device=DEVICE, **(BF16 if bf16 else {}),
     ).resolve()
 
 
@@ -681,16 +860,20 @@ def prostate_eval_fields(timing):
     )
 
 
-def phase_prostate_path(torch, np, ram_mix, prostate, data_root):
+def phase_prostate_path(torch, np, ram_mix, prostate, data_root, bf16_beside=None):
+    """The float32 run (`prostate_path`), or with `bf16_beside` (that run's
+    entry) the bfloat16 run (`prostate_bf16_path`)."""
     from ramdsir_tpu_torch.config import TrainConfig
     from ramdsir_tpu_torch.data.device_pipeline import DeviceProstatePipeline
     from ramdsir_tpu_torch.train.checkpoint import load_torch_checkpoint
     from ramdsir_tpu_torch.train.loop import fit, tf32_settings
     from ramdsir_tpu_torch.train.state import build_models
 
-    run_dir = os.path.join(PROSTATE_OUT, "run")
+    bf16 = bf16_beside is not None
+    phase, steps = ("prostate_bf16_path", PROSTATE_BF16_STEPS) if bf16 else ("prostate_path", PROSTATE_STEPS)
+    run_dir = os.path.join(PROSTATE_OUT, "bf16" if bf16 else "run")
     shutil.rmtree(run_dir, ignore_errors=True)
-    cfg = prostate_config(TrainConfig, run_dir, data_root)
+    cfg = prostate_config(TrainConfig, run_dir, data_root, bf16)
     pipe = DeviceProstatePipeline.from_arrays(
         prostate, cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx,
         is_out_domain=cfg.is_out_domain, seed=cfg.seed, precompute_donor_amp=cfg.ram_precompute_donor_amp,
@@ -701,7 +884,7 @@ def phase_prostate_path(torch, np, ram_mix, prostate, data_root):
     ram_mix.launches = 0
     ram_mix.launches_by_path.update(dict.fromkeys(ram_mix.launches_by_path, 0))
     t0 = time.perf_counter()
-    summary = fit(cfg, max_steps=PROSTATE_STEPS, pipeline=pipe)
+    summary = fit(cfg, max_steps=steps, pipeline=pipe)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ram_mix.launches
@@ -710,7 +893,7 @@ def phase_prostate_path(torch, np, ram_mix, prostate, data_root):
     rows = [json.loads(line) for line in open(os.path.join(run_dir, "log", "metrics.jsonl"))]
     keys = ("loss_ce_1", "loss_dice_1", "loss_ce_2", "loss_dice_2", "loss_consistency", "loss_rec", "loss")
     steps_logged = [r for r in rows if "loss/loss" in r]
-    finite = len(steps_logged) == PROSTATE_STEPS and all(
+    finite = len(steps_logged) == steps and all(
         set(k[5:] for k in r if k.startswith("loss/")) == set(keys) and np.all(np.isfinite([r[f"loss/{k}"] for k in keys]))
         for r in steps_logged
     )
@@ -721,7 +904,8 @@ def phase_prostate_path(torch, np, ram_mix, prostate, data_root):
     csv_rows = open(os.path.join(run_dir, f"{cfg.test_domain_idx}_val_log.csv")).read().splitlines()
     timing = summary["eval_timing"]
     entry = dict(
-        run="prostate", steps=summary["steps"], k1_launches=launches, k1_paths=paths, losses_finite=finite,
+        run="prostate_bf16" if bf16 else "prostate", steps=summary["steps"], k1_launches=launches, k1_paths=paths,
+        losses_finite=finite, compute_dtype=cfg.compute_dtype, predict_dtype=cfg.predict_dtype,
         first_loss=steps_logged[0]["loss/loss"], last_loss=steps_logged[-1]["loss/loss"],
         median_step_ms=summary["median_step_ms"], images_per_sec=summary["images_per_sec"],
         peak_memory_bytes=peak, wall_s=wall, batch=sum(cfg.batch_size_list), image_size=PS,
@@ -729,16 +913,19 @@ def phase_prostate_path(torch, np, ram_mix, prostate, data_root):
         best_file=os.path.basename(summary["best_checkpoint"]), csv_rows=len(csv_rows),
         eval_depth=PROSTATE_DEPTH, test_batch=cfg.test_batch_size, **prostate_eval_fields(timing),
     )
-    emit("prostate_path", **entry)
+    if bf16:
+        entry["float32"] = {k: bf16_beside[k] for k in ("median_step_ms", "images_per_sec", "peak_memory_bytes")}
+    emit(phase, **entry)
     if not finite:
-        raise SystemExit("prostate path: non-finite or missing losses")
-    if summary["steps"] != PROSTATE_STEPS or launches != PROSTATE_STEPS or paths != {"delta_flat": PROSTATE_STEPS}:
-        raise SystemExit(f"prostate path: {summary['steps']} steps, K1 launches {launches} on {paths}, "
-                         f"expected {PROSTATE_STEPS} on delta_flat")
-    if len(csv_rows) != 2 or not 0.0 <= summary["dice"] <= 1.0:
-        raise SystemExit(f"prostate path: {len(csv_rows)} CSV rows, Dice {summary['dice']}")
+        raise SystemExit(f"{phase}: non-finite or missing losses")
+    if summary["steps"] != steps or launches != steps or paths != {"delta_flat": steps}:
+        raise SystemExit(f"{phase}: {summary['steps']} steps, K1 launches {launches} on {paths}, "
+                         f"expected {steps} on delta_flat")
+    expected_evals = (steps - 1) // len(pipe) + 1  # one an epoch, and one at the last step
+    if len(csv_rows) != expected_evals or not 0.0 <= summary["dice"] <= 1.0:
+        raise SystemExit(f"{phase}: {len(csv_rows)} CSV rows (expected {expected_evals}), Dice {summary['dice']}")
     if timing["volumes"] != PROSTATE_VOLUMES or timing["batches"] != PROSTATE_VOLUMES * (PROSTATE_DEPTH // cfg.test_batch_size):
-        raise SystemExit(f"prostate path: eval read {timing['volumes']} volumes in {timing['batches']} batches")
+        raise SystemExit(f"{phase}: eval read {timing['volumes']} volumes in {timing['batches']} batches")
     return entry
 
 
@@ -767,8 +954,7 @@ def phase_prostate_step_parity(torch, np, ram_mix, prostate):
     phase_step_parity does for fundus."""
     from ramdsir_tpu_torch.config import TrainConfig
     from ramdsir_tpu_torch.data.device_pipeline import DeviceProstatePipeline
-    from ramdsir_tpu_torch.train.state import init_state
-    from ramdsir_tpu_torch.train.steps import make_train_step, sample_step_draws
+    from ramdsir_tpu_torch.train.steps import sample_step_draws
 
     set_exact_float32(torch)
     cfg = prostate_config(TrainConfig, os.path.join(PROSTATE_OUT, "parity"), "unused")
@@ -779,27 +965,12 @@ def phase_prostate_step_parity(torch, np, ram_mix, prostate):
     draws = sample_step_draws(torch.Generator().manual_seed(5), PB, torch.device(DEVICE), crop=False)
     out = {}
     for impl in ("kernel", "plain"):
-        state = init_state(cfg, torch.Generator().manual_seed(cfg.seed), DEVICE)
-        step = make_train_step(cfg, total_iters=1000, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data)
-        before = ram_mix.launches
-        if impl == "plain":
-            with mock.patch.object(ram_mix, "mix_spectrum", ram_mix.mix_spectrum_plain):
-                m = step(state, row, draws=draws)
-        else:
-            m = step(state, row, draws=draws)
-        if ram_mix.launches - before != (impl == "kernel"):
-            raise SystemExit(f"prostate step parity: the {impl} step launched K1 {ram_mix.launches - before} times")
-        out[impl] = (
-            {k: float(v) for k, v in m.items()},
-            {f"{n}.{k}": v.detach().clone() for n, mod in state.models.items() for k, v in mod.state_dict().items()},
-        )
-    (mk, pk), (mp, pp) = out["kernel"], out["plain"]
-    loss_rel = max(abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-6) for k in mk)
-    param_err = max(float((pk[k] - pp[k]).abs().max()) for k in pk if "running" not in k)
-    stats = [k for k in pk if "running" in k]
-    stat_err = max(float((pk[k] - pp[k]).abs().max()) for k in stats)
-    stats_ok = all(torch.allclose(pk[k], pp[k], rtol=1e-4, atol=1e-5) for k in stats)
-    entry = dict(run="prostate", loss=mk["loss"], loss_max_rel=loss_rel, loss_tol=1e-5,
+        metrics, sd, launched = step_from_seed(torch, ram_mix, cfg, pipe, row, draws, plain=impl == "plain", device=DEVICE)
+        out[impl] = (metrics, sd)
+        if launched != (impl == "kernel"):
+            raise SystemExit(f"prostate step parity: the {impl} step launched K1 {launched} times")
+    loss_rel, param_err, stat_err, stats_ok = step_distance(torch, out["kernel"], out["plain"])
+    entry = dict(run="prostate", loss=out["kernel"][0]["loss"], loss_max_rel=loss_rel, loss_tol=1e-5,
                  params_max_abs=param_err, params_tol=2.5 * cfg.lr,
                  running_stats_max_abs=stat_err, stats_tol="rtol 1e-4, atol 1e-5")
     emit("prostate_step_parity", **entry)
@@ -896,23 +1067,25 @@ KERNEL_GROUPS = [  # (group, substrings of CUDA kernel names), first match wins
 
 
 def phase_profile(torch, ram_mix, arrays, prostate, steps=5, warmup=3):
-    """Where a default fundus step's and a prostate step's device time goes:
-    torch.profiler over `steps` steps after `warmup`, each step synchronised
-    as `fit` does."""
+    """Where a default fundus step's and a prostate step's device time goes,
+    in float32 and in bfloat16: torch.profiler over `steps` steps after
+    `warmup`, each step synchronised as `fit` does."""
     from ramdsir_tpu_torch.config import TrainConfig
     from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline, DeviceProstatePipeline
 
-    cfg = main_path_config(TrainConfig, "default", os.path.join(OUT, "profile"))
-    pipe = DeviceFundusPipeline.from_arrays(
-        arrays, cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx,
-        is_out_domain=True, seed=cfg.seed, precompute_donor_amp=True, device="cuda",
-    )
-    profile_steps(torch, "default", cfg, pipe, steps, warmup)
-    cfg = prostate_config(TrainConfig, os.path.join(PROSTATE_OUT, "profile"), "unused")
-    pipe = DeviceProstatePipeline.from_arrays(
-        prostate, cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx, seed=cfg.seed, device="cuda"
-    )
-    profile_steps(torch, "prostate", cfg, pipe, steps, warmup)
+    for run in ("default", "bf16"):
+        cfg = main_path_config(TrainConfig, run, os.path.join(OUT, "profile"))
+        pipe = DeviceFundusPipeline.from_arrays(
+            arrays, cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx,
+            is_out_domain=True, seed=cfg.seed, precompute_donor_amp=True, device="cuda",
+        )
+        profile_steps(torch, run, cfg, pipe, steps, warmup)
+    for run in ("prostate", "prostate_bf16"):
+        cfg = prostate_config(TrainConfig, os.path.join(PROSTATE_OUT, "profile"), "unused", run == "prostate_bf16")
+        pipe = DeviceProstatePipeline.from_arrays(
+            prostate, cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx, seed=cfg.seed, device="cuda"
+        )
+        profile_steps(torch, run, cfg, pipe, steps, warmup)
 
 
 def profile_steps(torch, run, cfg, pipe, steps, warmup):
@@ -940,7 +1113,7 @@ def profile_steps(torch, run, cfg, pipe, steps, warmup):
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     emit("profile", run=run, steps=steps, step_ms=wall_us / steps / 1e3, batch=sum(cfg.batch_size_list),
-         image_size=cfg.image_size, **device_breakdown(prof, wall_us, steps, "step"))
+         image_size=cfg.image_size, compute_dtype=cfg.compute_dtype, **device_breakdown(prof, wall_us, steps, "step"))
 
 
 def device_breakdown(prof, wall_us, count, unit):
@@ -1054,11 +1227,11 @@ def main():
     try:
         return run_phases(torch, card, name, bw)
     finally:
-        # the checkpoints are ~10 MB each and the volumes ~19 MB: keep the
+        # the checkpoints are ~10-30 MB each and the volumes ~19 MB: keep the
         # logs, drop the weights and the data
         for root, _, files in os.walk(OUT):
             for f in files:
-                if f.endswith((".pth", ".nii.gz")):
+                if f.endswith((".pth", ".ckpt", ".nii.gz")):
                     os.remove(os.path.join(root, f))
 
 
@@ -1099,11 +1272,14 @@ def run_phases(torch, card, name, bw):
     emit("prostate_data", domains=len(prostate), per_domain=PROSTATE_SLICES, size=PS,
          volumes=PROSTATE_VOLUMES, depth=PROSTATE_DEPTH, seconds=time.perf_counter() - t0)
     prostate_run = phase_prostate_path(torch, np, ram_mix, prostate, data_root)
+    phase_prostate_path(torch, np, ram_mix, prostate, data_root, bf16_beside=prostate_run)
     phase_prostate_eval_cli(torch, np, data_root)
 
     phase_profile(torch, ram_mix, arrays, prostate)
     phase_step_parity(torch, np, ram_mix, arrays)
+    phase_bf16_step_parity(torch, np, ram_mix, arrays)
     phase_eval_parity(torch, np, testset)
+    phase_resume(torch, np, ram_mix, arrays, testset, runs["default"]["steps"])
     phase_prostate_step_parity(torch, np, ram_mix, prostate)
     volume = prostate_volumes(per_domain=1, depth=PROSTATE_DEPTH, size=PS, seed=1, domains=["HK"])["HK"][0]
     phase_prostate_eval_parity(torch, np, volume)

@@ -4,7 +4,8 @@ Dice, HD95 and ASD with the empty-prediction sentinel 100, the CSV log at
 `<save path>/../test<N>_log.csv`) plus --device.
 
 BatchNorm adapts to each test batch's statistics unless --freeze_bn is
-given.  --model_file is a `.pth` in the reference's format.
+given.  --model_file is a `.pth` in the reference's format or a `.ckpt`
+of the port or of the JAX package (full or weights-only).
 
 Example (on the card):
   python -m ramdsir_tpu_torch.cli.test_fundus_slice --model_file runs/fundus_t3/final_model.pth \
@@ -16,7 +17,7 @@ import argparse
 import os
 
 from ramdsir_tpu_torch.config import TrainConfig
-from ramdsir_tpu_torch.train.checkpoint import load_torch_checkpoint
+from ramdsir_tpu_torch.train.checkpoint import load_any_checkpoint
 from ramdsir_tpu_torch.train.evaluate import append_csv_log, eval_fundus
 from ramdsir_tpu_torch.train.state import build_models
 from ramdsir_tpu_torch.train.steps import make_predict_fn
@@ -54,7 +55,7 @@ def main(argv=None):
         image_size=a.image_size, save_path=output_path, device=str(device),
     ).resolve()
     models = build_models(cfg)
-    load_torch_checkpoint(a.model_file, models)
+    load_any_checkpoint(a.model_file, models)
     for m in models.values():
         m.to(device)
     predict = make_predict_fn(cfg, models, bn_adapt=not a.freeze_bn)

@@ -10,6 +10,9 @@ with the five other domains as sources, each evaluated every epoch):
   python -m ramdsir_tpu_torch.cli.train --dataset prostate --domain_idxs 0,1,2,3,4 \
       --test_domain_idx 5 --ram --rec --consistency --consistency_type kd \
       --save_path runs/prostate_t5
+--compute_dtype bfloat16 runs the U-Net in bfloat16 (float32 master
+weights, RAM in float32).  --resume runs/fundus_t3/final_model.ckpt goes on
+from a full-state checkpoint of the port or of the JAX package.
 """
 from __future__ import annotations
 

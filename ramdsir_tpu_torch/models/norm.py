@@ -23,6 +23,15 @@ are summed in float64 (`_adapted_norm`): a prostate window batch holds 1.2 M
 values a channel, and float32 sums of that many put the card's and the
 CPU's probabilities further apart than eval's 1e-4 parity bound (zero-padded
 rows widen the spread); the training step keeps the fused float32 kernel.
+
+Under bfloat16 activations (`--compute_dtype bfloat16`) the statistics are
+computed in float32 from the bfloat16 values, weight, bias and running
+statistics stay float32, and the output is bfloat16, as in the JAX package
+(`ramdsir_tpu/models/norm.py:76-137`).  The normalisation then follows JAX's
+order, rounding four times ((x - mean), * inv, * scale, + bias;
+`_low_precision_norm`): the fused float32 kernel rounds once, and a
+one-rounding bfloat16 forward lies further from JAX's bfloat16 forward than
+that lies from float32 (tests/test_torch_port_bf16.py).
 """
 from __future__ import annotations
 
@@ -49,17 +58,35 @@ def _train_norm(
 ) -> torch.Tensor:
     """Train-mode BN of x (N, C, H, W) with statistics from x[:n_stats];
     updates the running statistics in place unless they are None."""
-    if n_stats is None or n_stats >= x.shape[0]:
+    full = n_stats is None or n_stats >= x.shape[0]
+    real = x if full else x[:n_stats]
+    if x.dtype != torch.float32:
+        # the statistics need their own gradient only when they come from a
+        # part of the rows; the full case's backward accounts for them
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not full):
+            mean, var = _low_precision_stats(real)
+        _update_running(running_mean, running_var, mean, var, real, momentum)
+        inv = torch.rsqrt(var + eps)
+        if full:
+            return _LowPrecisionBatchNorm.apply(x, weight, bias, mean, inv, eps)
+        return _low_precision_norm(x, weight, bias, mean, inv)
+    if full:
         return F.batch_norm(x, running_mean, running_var, weight, bias, True, momentum, eps)
-    real = x[:n_stats]
     var, mean = torch.var_mean(real, dim=(0, 2, 3), correction=0)
-    n = real.numel() / real.shape[1]
-    if running_mean is not None:
-        with torch.no_grad():
-            running_mean.mul_(1.0 - momentum).add_(mean, alpha=momentum)
-            running_var.mul_(1.0 - momentum).add_(var * (n / max(n - 1.0, 1.0)), alpha=momentum)
+    _update_running(running_mean, running_var, mean, var, real, momentum)
     scale = weight * torch.rsqrt(var + eps)
     return (x - mean[None, :, None, None]) * scale[None, :, None, None] + bias[None, :, None, None]
+
+
+def _update_running(running_mean, running_var, mean, var, real, momentum) -> None:
+    """new = (1-m)*old + m*batch, the variance unbiased over real's values
+    a channel; nothing when the running statistics are None."""
+    if running_mean is None:
+        return
+    n = real.numel() / real.shape[1]
+    with torch.no_grad():
+        running_mean.mul_(1.0 - momentum).add_(mean, alpha=momentum)
+        running_var.mul_(1.0 - momentum).add_(var * (n / max(n - 1.0, 1.0)), alpha=momentum)
 
 
 def _adapted_norm(
@@ -72,8 +99,55 @@ def _adapted_norm(
     dims = (0, 2, 3)
     mean = (torch.sum(real, dim=dims, dtype=torch.float64) / n).float()[None, :, None, None]
     var = torch.sum(torch.square(real - mean), dim=dims, dtype=torch.float64) / n
+    if x.dtype != torch.float32:
+        return _low_precision_norm(x, weight, bias, mean.reshape(-1), torch.rsqrt(var.float() + eps))
     scale = (weight.double() * torch.rsqrt(var + eps)).float()
     return (x - mean) * scale[None, :, None, None] + bias[None, :, None, None]
+
+
+def _low_precision_norm(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor
+) -> torch.Tensor:
+    """The JAX package's normalisation of a bfloat16 x with float32
+    statistics (`ramdsir_tpu/models/norm.py:120-137`; inv = rsqrt(var +
+    eps)): (x - mean) * inv * scale + bias, each operand and each product
+    rounded to x.dtype, which reproduces its bits (cuDNN's fused kernel
+    rounds once)."""
+    c = lambda t: t.to(x.dtype)[None, :, None, None]
+    return (x - c(mean)) * c(inv) * c(weight) + c(bias)
+
+
+def _low_precision_stats(real: torch.Tensor):
+    """The JAX package's float32 batch statistics of a bfloat16 map: E[x]
+    and max(E[x^2] - E[x]^2, 0), summed in float32 from the bfloat16 values
+    (no float32 copy of the map)."""
+    n = real.numel() // real.shape[1]
+    dims = (0, 2, 3)
+    mean = torch.sum(real, dims, dtype=torch.float32) / n
+    mean2 = torch.linalg.vector_norm(real, 2, dims, dtype=torch.float32).square() / n
+    return mean, torch.clamp(mean2 - mean.square(), min=0.0)
+
+
+class _LowPrecisionBatchNorm(torch.autograd.Function):
+    """Train-mode BN of a bfloat16 x over all its rows, with its float32
+    batch statistics given: JAX's four-rounding forward, and for the
+    backward aten's fused batch-norm backward (the exact gradient of BN,
+    statistics included, in one kernel; JAX differentiates its four ops,
+    which differs from it by bfloat16 rounding only)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mean, invstd, eps):
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.eps = eps
+        return _low_precision_norm(x, weight, bias, mean, invstd)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, weight, mean, invstd = ctx.saved_tensors
+        grad_x, grad_w, grad_b = torch.ops.aten.native_batch_norm_backward(
+            grad_out.contiguous(), x, weight, None, None, mean, invstd, True, ctx.eps, [True, True, True]
+        )
+        return grad_x, grad_w, grad_b, None, None, None
 
 
 class BatchNorm(nn.Module):
@@ -89,6 +163,9 @@ class BatchNorm(nn.Module):
 
     def normalize_running(self, x: torch.Tensor) -> torch.Tensor:
         """Eval-mode normalisation with the running statistics."""
+        if x.dtype != torch.float32:
+            inv = torch.rsqrt(self.running_var + self.eps)
+            return _low_precision_norm(x, self.weight, self.bias, self.running_mean, inv)
         return F.batch_norm(
             x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps
         )

@@ -15,6 +15,15 @@ strict=True.  `init_weights` gives convs Kaiming-normal fan-out weights (gain
 sqrt(2)) and torch's default uniform(+-1/sqrt(fan_in)) biases from an
 explicit Generator; norms start at weight 1, bias 0.
 
+Mixed precision, as the JAX package's `dtype=x.dtype` convs
+(`ramdsir_tpu/models/unet.py:112-124`): every op runs in its input's dtype
+(a bfloat16 input gives bfloat16 activations throughout), while the
+parameters stay float32 master weights for Adam; a conv casts its weight and
+bias to the input's dtype at the call.  Below float32 the conv's bias add
+and the norms' four steps (models/norm.py) round where the JAX package's
+do: with one rounding each, the port's bfloat16 forward lay further from
+JAX's than JAX's lies from float32 (tests/test_torch_port_bf16.py).
+
 `s2d_levels` is accepted for configuration parity only: in the JAX package
 it moves the top stages into a 2x2 space-to-depth layout for the TPU's
 lanes, with numerics pinned equal to s2d_levels=0.  This port always runs
@@ -51,8 +60,21 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d whose float32 parameters are cast to the input's dtype at
+    the call (torch refuses a bfloat16 input with float32 weights).  Below
+    float32 the bias is added after the convolution, rounded, as flax does
+    (PyTorch's cuDNN path adds it as a separate op in any case)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        y = self._conv_forward(x, self.weight.to(x.dtype), None)
+        return y + self.bias.to(x.dtype)[None, :, None, None]
+
+
 def _conv(cin: int, cout: int, k: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, padding=k // 2)
+    return Conv2d(cin, cout, k, padding=k // 2)
 
 
 def _act(name: str):

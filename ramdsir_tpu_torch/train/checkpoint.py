@@ -1,36 +1,77 @@
-"""Keep-best checkpoints and loading the reference's `.pth` format (port of
-`BestKeeper` in `ramdsir_tpu/train/checkpoint.py:77-114`).
+"""Checkpoints (PyTorch port of `ramdsir_tpu/train/checkpoint.py`).
 
-The files are the reference's format (`utils.torch_compat.export_torch_checkpoint`):
-{"<module>_state_dict": state_dict} with weights and BN statistics, no
-optimiser.  The flax msgpack `.ckpt` of the JAX package is not read here.
+Two formats:
+  .ckpt   the JAX package's: flax msgpack of {"state": the TrainState's
+          state dict (params, batch_stats, opt_state = optax Adam's {count,
+          mu, nu}, step), "meta": {...}}, read and written with the port's
+          own codec (`utils/msgpack.py`).  `fit` writes the full state to
+          `final_model.ckpt` and resumes from one; the JAX package's
+          `load_checkpoint` reads the port's files and the port reads its.
+  .pth    the reference's (`utils.torch_compat.export_torch_checkpoint`):
+          {"<module>_state_dict": state_dict}, weights and BN statistics, no
+          optimiser; the keep-best `model_<dice>.pth` and `final_model.pth`.
 """
 from __future__ import annotations
 
 import glob
 import os
-from typing import Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 
-from ramdsir_tpu_torch.utils.torch_compat import export_torch_checkpoint
+from ramdsir_tpu_torch.train.state import TrainState, load_state_tree, state_to_tree
+from ramdsir_tpu_torch.utils import msgpack
+from ramdsir_tpu_torch.utils.torch_compat import export_torch_checkpoint, load_jax_params
+
+
+def save_checkpoint(
+    path: str, state: TrainState, meta: Optional[Dict[str, Any]] = None, weights_only: bool = False
+) -> None:
+    """Write `state` as the JAX package's `.ckpt`; weights_only drops the
+    Adam state, as the JAX package's rolling best does."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tree = state_to_tree(state)
+    if weights_only:
+        tree.pop("opt_state")
+    with open(path, "wb") as f:
+        f.write(msgpack.packb({"state": tree, "meta": meta or {}}))
+
+
+def read_checkpoint(path: str) -> Dict[str, Any]:
+    """A `.ckpt`'s {"state": ..., "meta": ...} with numpy leaves."""
+    with open(path, "rb") as f:
+        return msgpack.unpackb(f.read())
+
+
+def load_checkpoint(path: str, state: TrainState) -> Dict[str, Any]:
+    """Load a `.ckpt` into `state` in place (a weights-only file keeps the
+    state's own Adam state); returns its meta."""
+    payload = read_checkpoint(path)
+    load_state_tree(state, payload["state"])
+    return payload.get("meta", {})
 
 
 def load_torch_checkpoint(path: str, models: Mapping[str, torch.nn.Module]) -> None:
     """Load a `.pth` into `models` in place: every built module from its
     `<name>_state_dict`, strictly; modules that were not built (the eval CLI
     builds no rec decoder) are not read."""
-    if path.endswith(".ckpt"):
-        raise NotImplementedError(
-            f"{path}: flax .ckpt checkpoints are not read by the port yet "
-            "(ROADMAP.md: Resume and checkpoint interchange); pass a .pth"
-        )
     payload = torch.load(path, map_location="cpu", weights_only=True)
     for name, module in models.items():
         key = f"{name}_state_dict"
         if key not in payload:
             raise KeyError(f"{path} has no {key} (it holds {sorted(payload)})")
         module.load_state_dict(payload[key], strict=True)
+
+
+def load_any_checkpoint(path: str, models: Mapping[str, torch.nn.Module]) -> None:
+    """The eval CLIs' loader: a `.pth`/`.pt` through `load_torch_checkpoint`,
+    anything else as a `.ckpt` (full or weights-only, from the port or the
+    JAX package); weights and BN statistics of the built modules, in place."""
+    if path.endswith((".pth", ".pt")):
+        load_torch_checkpoint(path, models)
+        return
+    state = read_checkpoint(path)["state"]
+    load_jax_params(models, state["params"], state["batch_stats"])
 
 
 class BestKeeper:

@@ -7,6 +7,15 @@ prostate volumes (`eval_prostate_volumes`).  It appends the row to
 `{test_domain_idx}_val_log.csv`, logs `eval/avg_dice` and keeps the best
 checkpoint `model_<dice>.pth` (`train.checkpoint.BestKeeper`).  Eval draws
 no random number and launches no RAM kernel.
+
+At the end it writes `final_model.pth` (the reference's weights) and
+`final_model.ckpt` (the full state in the JAX package's format).
+`cfg.checkpoint_resume` (--resume) loads such a `.ckpt`, from the port or
+the JAX package, and the run goes on from its step: `max_steps` counts
+global steps, the poly LR continues, and the epoch plan and the draws start
+afresh from the seed, as in the JAX package.  The run stops when the step
+reaches the schedule's total_iters; the JAX package's loop would run
+`epochs` more epochs and take the LR past zero, to NaN (ROADMAP.md §3).
 """
 from __future__ import annotations
 
@@ -24,7 +33,7 @@ from ramdsir_tpu_torch.config import TrainConfig
 from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline, DeviceProstatePipeline
 from ramdsir_tpu_torch.data.fundus import FundusMultiDataset
 from ramdsir_tpu_torch.data.prostate import ProstateMultiDataset
-from ramdsir_tpu_torch.train.checkpoint import BestKeeper
+from ramdsir_tpu_torch.train.checkpoint import BestKeeper, load_checkpoint, save_checkpoint
 from ramdsir_tpu_torch.train.evaluate import append_csv_log, eval_fundus, eval_prostate_volumes
 from ramdsir_tpu_torch.train.state import init_state
 from ramdsir_tpu_torch.train.steps import check_supported, make_predict_fn, make_train_step
@@ -122,6 +131,9 @@ def fit(
 
     generator = torch.Generator().manual_seed(cfg.seed)
     state = init_state(cfg, generator, device)
+    if cfg.checkpoint_resume:
+        load_checkpoint(cfg.checkpoint_resume, state)
+        print(f"resumed from {cfg.checkpoint_resume} at step {state.step}", flush=True)
     train_step = make_train_step(
         cfg, total_iters, batch_size_list=pipeline.batch_sizes, device_data=pipeline.device_data
     )
@@ -131,10 +143,10 @@ def fit(
     timer = StepTimer(device=device)
     summary: Dict = {}
 
-    step = 0
-    done = False
+    step = state.step
+    done = max_steps is not None and step >= max_steps
     epoch = 0
-    while epoch < cfg.epochs and not done:
+    while epoch < cfg.epochs and step < total_iters and not done:
         t_ep = time.time()
         for row in pipeline:
             metrics = train_step(state, row, generator)
@@ -148,6 +160,8 @@ def fit(
             step += 1
             if max_steps is not None and step >= max_steps:
                 done = True
+                break
+            if step >= total_iters:  # a resumed run ends with the schedule
                 break
         if (epoch + 1) % eval_every == 0 or done:
             timer.mark()
@@ -167,10 +181,12 @@ def fit(
     timer.mark()
     final_path = os.path.join(save_dir, "final_model.pth")
     export_torch_checkpoint(final_path, state.models)
+    resume_path = os.path.join(save_dir, "final_model.ckpt")
+    save_checkpoint(resume_path, state, meta={"steps": step})
     writer.close()
     summary.update(
         best=keeper.best, best_checkpoint=keeper.best_path, steps=step,
         images_per_sec=timer.items_per_sec, median_step_ms=timer.median_step_ms,
-        final_checkpoint=final_path,
+        final_checkpoint=final_path, resume_checkpoint=resume_path,
     )
     return summary

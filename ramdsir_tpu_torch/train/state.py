@@ -2,19 +2,29 @@
 of `ramdsir_tpu/train/state.py`).
 
 The modules and the optimizer update in place; `TrainState.step` counts the
-optimizer steps taken.
+optimizer steps taken.  `state_to_tree` and `load_state_tree` convert the
+whole state to and from the layout of the JAX package's
+`flax.serialization.to_state_dict(TrainState)`: {params, batch_stats,
+opt_state: {count, mu, nu}, step}, numpy leaves.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Union
+from typing import Any, Dict, Mapping, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from ramdsir_tpu_torch.config import TrainConfig
 from ramdsir_tpu_torch.models.unet import Decoder, Encoder, RecDecoder, init_weights
 from ramdsir_tpu_torch.utils.device import resolve_device
+from ramdsir_tpu_torch.utils.torch_compat import (
+    jax_adam_to_torch,
+    load_jax_params,
+    torch_adam_to_jax,
+    torch_to_jax_params,
+)
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # reference train.py:573-587
 
@@ -63,3 +73,24 @@ def init_state(
         lr=cfg.lr, betas=(ADAM_B1, ADAM_B2), eps=ADAM_EPS,
     )
     return TrainState(models=models, optimizer=optimizer)
+
+
+def state_to_tree(state: TrainState) -> Dict[str, Any]:
+    """The whole state as the JAX TrainState's state dict."""
+    params, batch_stats = torch_to_jax_params(state.models)
+    return {
+        "params": params,
+        "batch_stats": batch_stats,
+        "opt_state": torch_adam_to_jax(state.models, state.optimizer),
+        "step": np.asarray(state.step, np.int32),
+    }
+
+
+def load_state_tree(state: TrainState, tree: Mapping[str, Any]) -> None:
+    """Load a JAX TrainState's state dict into `state` in place.  A tree
+    without an optimizer state (a weights-only checkpoint) keeps `state`'s
+    own, as the JAX package's `load_checkpoint` keeps its template's."""
+    load_jax_params(state.models, tree["params"], tree["batch_stats"])
+    if tree.get("opt_state"):
+        jax_adam_to_torch(state.models, state.optimizer, tree["opt_state"])
+    state.step = int(tree["step"])

@@ -21,6 +21,12 @@ draws instead (the tests pass the numbers the JAX functions drew).
 
 Layout: batch dicts are NHWC as in the JAX package; the step works on NCHW
 from the encoder on.
+
+Precision (`--compute_dtype`): RAM, and with it K1, runs in float32; only
+the encoder's input is cast to the compute dtype, so the U-Net's activations
+are bfloat16 under `bfloat16`.  The logits and the restoration output go
+back to float32 before the losses, and the restoration MSE reads the
+uncast float32 image (`ramdsir_tpu/train/steps.py:114`, `:242`, `:330`).
 """
 from __future__ import annotations
 
@@ -50,16 +56,22 @@ from ramdsir_tpu_torch.ops.ram import (
 from ramdsir_tpu_torch.train.state import TrainState
 
 
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a --compute_dtype / predict_dtype value."""
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if name not in dtypes:
+        raise ValueError(f"unknown dtype {name!r} (use 'float32' or 'bfloat16')")
+    return dtypes[name]
+
+
 def check_supported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for what this port does not run yet, naming
     the ROADMAP.md item."""
     unported = [
         (cfg.dataset != "fundus" and cfg.num_classes != 2,
          f"--dataset {cfg.dataset} --num_classes {cfg.num_classes} (the softmax head)", "off-path variants"),
-        (cfg.compute_dtype != "float32", "--compute_dtype bfloat16", "bf16 autocast"),
         (bool(cfg.num_devices) and cfg.num_devices > 1, "--num_devices > 1", "Multi-GPU DDP"),
         (cfg.remat, "--remat", "off-path variants"),
-        (bool(cfg.checkpoint_resume), "--resume", "Resume and checkpoint interchange"),
         (bool(cfg.trace_dir), "--trace_dir", "the port's own benchmark"),
         (cfg.norm != "bn", f"--norm {cfg.norm}", "off-path variants"),
         (bool(cfg.global_batch), "--global_batch", "Multi-GPU DDP"),
@@ -68,6 +80,7 @@ def check_supported(cfg: TrainConfig) -> None:
     for bad, what, item in unported:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {item})")
+    torch_dtype(cfg.compute_dtype)
     if cfg.consistency and cfg.consistency_type not in ("mse", "kd"):
         raise ValueError(f"unknown consistency_type {cfg.consistency_type!r} (use 'mse' or 'kd')")
 
@@ -115,6 +128,7 @@ def make_train_step(
     b_real = sum(bsl)
     domains = np.repeat(np.arange(len(bsl)), bsl)  # per-sample DSBN labels
     base_lr = float(cfg.lr)
+    compute_dtype = torch_dtype(cfg.compute_dtype)
     group_factor = {"encoder": 0.5 if cfg.rec else 1.0}
     seg_cache: Dict[tuple, torch.Tensor] = {}
 
@@ -139,6 +153,7 @@ def make_train_step(
         the consistency loss: fundus sigmoid probabilities, prostate the
         flat (B, H*W) logit-difference map."""
         if is_fundus:
+            logits = logits.float()
             pred = torch.sigmoid(logits)
             return pred, bce_with_logits_loss(logits, mask), dice_loss(pred, mask)
         l = (logits[:, 1].float() - logits[:, 0].float()).reshape(logits.shape[0], -1)
@@ -166,19 +181,19 @@ def make_train_step(
                 img, img_freq = aug(batch["img"], batch["donor"], draws["ratio"])
         else:
             img, img_freq = (batch["img"] / 127.5 - 1.0 if is_fundus else batch["img"].float()), None
-        img = nchw(img)
+        img = nchw(img)  # float32: RAM ran in float32 and the restoration MSE reads img
         mask = (nchw(batch["mask"]) if is_fundus else batch["mask"])[:b_real]
 
         if cfg.ram:
             # one forward over [clean; RAM]: per-half BN statistics, the two
             # running-stat updates in order (models/norm.py)
             half = img.shape[0]
-            feats = enc(torch.cat([img, nchw(img_freq)]), dual=True)
+            feats = enc(torch.cat([img, nchw(img_freq)]).to(compute_dtype), dual=True)
             logits_all = dec(feats, dual=True)
             logits1, logits2 = logits_all[:b_real], logits_all[half : half + b_real]
             feats_f_last = feats[-1][half:]
         else:
-            logits1 = dec(enc(img))[:b_real]
+            logits1 = dec(enc(img.to(compute_dtype)))[:b_real]
 
         pred1, loss_sup1, loss_dice1 = seg_head(logits1, mask)
         loss = loss_sup1 + loss_dice1
@@ -193,7 +208,7 @@ def make_train_step(
             if cfg.rec:
                 # one rec-decoder pass over the whole RAM bottleneck, DSBN in
                 # segment mode; per-domain MSE through the segment matrix
-                rec_soft = torch.tanh(state.models["rec_decoder"](feats_f_last, domain=domains))
+                rec_soft = torch.tanh(state.models["rec_decoder"](feats_f_last, domain=domains).float())
                 per_row = torch.sum(torch.square(rec_soft[:b_real] - img[:b_real]), dim=(1, 2, 3))
                 loss_rec_d = rec_weights(rec_soft[:b_real].shape, img.device) @ per_row
                 avg_rec = torch.sum(loss_rec_d)
@@ -263,12 +278,13 @@ def make_predict_fn(cfg: TrainConfig, models: Mapping[str, torch.nn.Module], bn_
     batch as it is; n_valid (the JAX package pads to one compiled shape and
     passes the real row count) is accepted for parity: with it, the batch
     statistics come from the first n_valid rows.
+
+    cfg.predict_dtype="bfloat16" runs the forward in bfloat16 (the input is
+    cast after its normalisation, BN statistics are float32) and returns
+    float32 probabilities, as the JAX package does.
     """
     cfg = cfg.resolve()
-    if cfg.predict_dtype != "float32":
-        raise NotImplementedError(
-            f"predict_dtype {cfg.predict_dtype!r} is not ported yet (ROADMAP.md: bf16 autocast)"
-        )
+    pdt = torch_dtype(cfg.predict_dtype)
     is_fundus = cfg.dataset == "fundus"
     enc, dec = models["encoder"], models["seg_decoder"]
 
@@ -277,6 +293,7 @@ def make_predict_fn(cfg: TrainConfig, models: Mapping[str, torch.nn.Module], bn_
         x = torch.as_tensor(img).to(device=device, dtype=torch.float32).permute(0, 3, 1, 2)
         if is_fundus:
             x = x / 127.5 - 1.0
+        x = x.to(pdt)
         with torch.no_grad():
             if bn_adapt:
                 with batch_statistics(enc, dec):
@@ -289,6 +306,7 @@ def make_predict_fn(cfg: TrainConfig, models: Mapping[str, torch.nn.Module], bn_
                 finally:
                     for m, flag in training.items():
                         m.train(flag)
+        logits = logits.float()
         if is_fundus:
             return torch.sigmoid(logits)
         return torch.softmax(logits, dim=1)

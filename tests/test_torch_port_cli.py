@@ -220,6 +220,66 @@ def test_eval_cli_matches_jax_cli(trained_run, tmp_path, capsys):
     assert len(os.listdir(tmp_path / "port" / "test0")) == 3
 
 
+@pytest.mark.parametrize("dataset", ["fundus", "prostate"])
+def test_eval_clis_score_ckpt_as_pth(trained_run, prostate_run, tmp_path, capsys, dataset):
+    """Each eval CLI scores the run's final_model.ckpt (the port's full
+    state) and a weights-only .ckpt that the JAX package writes from
+    final_model.pth exactly as it scores final_model.pth."""
+    from ramdsir_tpu.config import TrainConfig as JConfig
+    from ramdsir_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
+    from ramdsir_tpu.train.state import init_state as jinit_state
+    from ramdsir_tpu.utils.torch_compat import import_torch_checkpoint
+
+    if dataset == "fundus":
+        from ramdsir_tpu_torch.cli.test_fundus_slice import main
+
+        root, fields = trained_run[0], ("cup_dice", "disc_dice", "hd_oc", "hd_od", "asd_oc", "asd_od")
+        args = ["--datasetTest", "0", "--batch_size", "2", "--image_size", "32"]
+        jcfg = JConfig(image_size=32, domain_idxs=(1, 2, 3), test_domain_idx=0, ram=True, rec=True)
+    else:
+        from ramdsir_tpu_torch.cli.test_prostate_volume import main
+
+        root, fields = prostate_run[0], ("dice", "hd", "asd")
+        args = ["--datasetTest", "5", "--batch_size", "4"]
+        jcfg = JConfig(dataset="prostate", domain_idxs=(0, 1, 2, 3, 4), test_domain_idx=5, ram=True, rec=True)
+    run = root / "run"
+    jstate, _ = jinit_state(jcfg.resolve(), jax.random.PRNGKey(0))
+    jax_weights = str(tmp_path / "jax_weights.ckpt")
+    jax_save_checkpoint(jax_weights, import_torch_checkpoint(str(run / "final_model.pth"), jstate), weights_only=True)
+    scores = {}
+    for name in (str(run / "final_model.pth"), str(run / "final_model.ckpt"), jax_weights):
+        res = main(["--device", "cpu", "--model_file", name, "--data_dir", str(root / "data"),
+                    "--test_prediction_save_path", str(tmp_path / ("out_" + os.path.basename(name))), *args])
+        scores[name] = [getattr(res, f) for f in fields]
+    capsys.readouterr()
+    first, *others = scores.values()
+    assert all(other == first for other in others), scores
+
+
+def test_cli_bf16_resume_drive(trained_run, tmp_path, capsys):
+    """--compute_dtype bfloat16 --resume <final_model.ckpt>: the run goes on
+    from the checkpoint's step 2 to --max_steps 3 in bfloat16 (--epochs 2:
+    one epoch is the checkpoint's 2 steps, where a resumed run stops), logs
+    that step's finite losses, and writes both final files."""
+    data, run = trained_run[0] / "data", trained_run[0] / "run"
+    resumed = tmp_path / "resumed"
+    cli_main(["--device", "cpu", "--data_root", str(data), "--dataset", "fundus", "--domain_idxs", "1,2,3",
+              "--test_domain_idx", "0", "--ram", "--rec", "--is_out_domain", "--consistency",
+              "--consistency_type", "kd", "--save_path", str(resumed), "--image_size", "32", "--epochs", "2",
+              "--max_steps", "3", "--test_batch_size", "2", "--compute_dtype", "bfloat16",
+              "--resume", str(run / "final_model.ckpt")])
+    out = capsys.readouterr().out
+    assert f"resumed from {run / 'final_model.ckpt'} at step 2" in out
+    summary = ast.literal_eval(out.strip().splitlines()[-1])
+    assert summary["steps"] == 3 and summary["resume_checkpoint"] == str(resumed / "final_model.ckpt")
+    rows = [json.loads(line) for line in (resumed / "log" / "metrics.jsonl").read_text().splitlines()]
+    losses = [r for r in rows if "loss/loss" in r]
+    assert [r["step"] for r in losses] == [2] and all(np.isfinite(v) for v in losses[0].values())
+    assert os.path.exists(resumed / "final_model.pth")
+    cfg = json.loads((resumed / "run_config.json").read_text())["config"]
+    assert cfg["compute_dtype"] == "bfloat16" and cfg["checkpoint_resume"] == str(run / "final_model.ckpt")
+
+
 def test_port_imports_no_jax_and_no_reference_package():
     """Import every module of ramdsir_tpu_torch in a fresh interpreter (the
     test process has JAX loaded already) and list what came in."""
@@ -230,7 +290,7 @@ names = [m.name for m in pkgutil.walk_packages(ramdsir_tpu_torch.__path__, "ramd
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ramdsir_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "ramdsir_tpu"))
 print(names)
 print(bad)
 """
@@ -240,7 +300,7 @@ print(bad)
     assert len(names) >= 30, names
     for new in ("native", "ops.metrics", "ops.postprocess", "ops.resize", "data.loaders", "train.evaluate",
                 "train.checkpoint", "utils.viz", "cli.test_fundus_slice", "data.nifti", "data.prostate",
-                "cli.test_prostate_volume"):
+                "cli.test_prostate_volume", "utils.msgpack"):
         assert f"ramdsir_tpu_torch.{new}" in names, new
     assert bad == [], bad
 
@@ -302,10 +362,8 @@ def test_failing_compiler_raises(monkeypatch):
     "flags",
     [
         ["--dataset", "prostate", "--num_classes", "3"],
-        ["--compute_dtype", "bfloat16"],
         ["--num_devices", "2"],
         ["--remat"],
-        ["--resume", "ckpt.pth"],
         ["--trace_dir", "trace"],
         ["--norm", "gn"],
         ["--global_batch", "18"],

@@ -1,5 +1,6 @@
-"""K1 on the card against its plain version, and the eval path on the card
-against the CPU (marker `cuda`; skipped without a card).
+"""K1 on the card against its plain version, the eval path on the card
+against the CPU, a bfloat16 step through K1 and a `.ckpt` round trip of a
+card state (marker `cuda`; skipped without a card).
 
 These tests import neither JAX nor the JAX package, so they also run where
 JAX is not installed; the root conftest.py imports JAX, so run them there
@@ -211,3 +212,64 @@ def test_predict_volume_on_card_matches_cpu(eval_models, bn_adapt):
     res = {dev: eval_prostate_volumes(p, volumes, 5, batch_size=4) for dev, p in predict.items()}
     assert res["cuda"].num == 1 and res["cuda"].timing["batches"] == 3
     assert abs(res["cuda"].dice - res["cpu"].dice) <= 1e-3
+
+
+# --- a bfloat16 step and a checkpoint round trip on the card ---------------------
+
+
+def _card_step(compute_dtype):
+    """A fundus RAM-DSIR state at 64^2 on the card after one step of the
+    device pipeline, and K1's launches during that step by code path."""
+    from ramdsir_tpu_torch.config import TrainConfig
+    from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
+    from ramdsir_tpu_torch.data.synthetic import fundus_arrays
+    from ramdsir_tpu_torch.train.state import init_state
+    from ramdsir_tpu_torch.train.steps import make_train_step
+
+    cfg = TrainConfig(dataset="fundus", domain_idxs=(1, 2, 3), test_domain_idx=0, ram=True, rec=True,
+                      is_out_domain=True, consistency=True, consistency_type="kd", image_size=64,
+                      compute_dtype=compute_dtype, device="cuda").resolve()
+    pipe = DeviceFundusPipeline.from_arrays(
+        fundus_arrays(per_domain_train=8, size=64), cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx,
+        is_out_domain=True, seed=0, precompute_donor_amp=cfg.ram_precompute_donor_amp, device="cuda",
+    )
+    state = init_state(cfg, torch.Generator().manual_seed(0), "cuda")
+    step = make_train_step(cfg, total_iters=10, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data)
+    before = dict(ram_mix.launches_by_path)
+    metrics = step(state, next(iter(pipe)), torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    launched = {p: k - before.get(p, 0) for p, k in ram_mix.launches_by_path.items() if k != before.get(p, 0)}
+    return cfg, state, metrics, launched
+
+
+def test_bf16_step_on_card_launches_k1_once(gen):
+    """A bfloat16 step runs RAM in float32 through K1, once, on the
+    band-delta path; its losses are finite float32 and the weights, BN
+    statistics and Adam moments stay float32."""
+    _, state, metrics, launched = _card_step("bfloat16")
+    assert launched == {"delta_flat": 1}
+    assert all(v.dtype == torch.float32 and bool(torch.isfinite(v)) for v in metrics.values())
+    assert all(t.dtype == torch.float32 and t.is_cuda for m in state.models.values() for t in m.state_dict().values())
+    assert all(v.dtype == torch.float32 for s in state.optimizer.state.values() for k, v in s.items() if k != "step")
+
+
+def test_ckpt_round_trip_of_card_state_is_bit_equal(gen, tmp_path):
+    """A card state after a step, written as a .ckpt and loaded into a fresh
+    state on the card: every parameter, buffer and Adam moment bit-equal,
+    and the step."""
+    from ramdsir_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from ramdsir_tpu_torch.train.state import init_state
+
+    cfg, a, _, _ = _card_step("float32")
+    save_checkpoint(str(tmp_path / "a.ckpt"), a)
+    b = init_state(cfg, torch.Generator().manual_seed(9), "cuda")
+    load_checkpoint(str(tmp_path / "a.ckpt"), b)
+    assert a.step == b.step == 1
+    for name, m in a.models.items():
+        for k, v in m.state_dict().items():
+            assert v.is_cuda and torch.equal(v, b.models[name].state_dict()[k]), f"{name}.{k}"
+    pa = [p for m in a.models.values() for p in m.parameters()]
+    pb = [p for m in b.models.values() for p in m.parameters()]
+    for p, q in zip(pa, pb):
+        sa, sb = a.optimizer.state[p], b.optimizer.state[q]
+        assert sa.keys() == sb.keys() and all(torch.equal(sa[k].cpu(), sb[k].cpu()) for k in sa)

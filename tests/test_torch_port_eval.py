@@ -33,7 +33,7 @@ from ramdsir_tpu_torch.data.synthetic import fundus_test_samples, make_fundus_tr
 from ramdsir_tpu_torch.ops import metrics, postprocess
 from ramdsir_tpu_torch.ops.resize import bilinear_resize_chw
 from ramdsir_tpu_torch.train import evaluate
-from ramdsir_tpu_torch.train.checkpoint import BestKeeper, load_torch_checkpoint
+from ramdsir_tpu_torch.train.checkpoint import BestKeeper, load_any_checkpoint, load_torch_checkpoint
 from ramdsir_tpu_torch.train.state import build_models
 from ramdsir_tpu_torch.train.steps import make_predict_fn
 from ramdsir_tpu_torch.utils.torch_compat import export_torch_checkpoint, jax_params_to_torch
@@ -240,12 +240,6 @@ def test_predict_tail_matches_jax_padded(weights, jpredict, bn_adapt):
         assert np.abs(predict(padded)[:3].numpy().transpose(0, 2, 3, 1) - want).max() > 1e-3
 
 
-def test_predict_bf16_raises():
-    cfg = TrainConfig(image_size=S, rec=False, predict_dtype="bfloat16", device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16 autocast"):
-        make_predict_fn(cfg, build_models(cfg.resolve()))
-
-
 # --- checkpoints ---------------------------------------------------------------
 
 
@@ -286,8 +280,9 @@ def test_best_keeper(tmp_path, weights):
                tmp_path / "partial.pth")
     with pytest.raises(RuntimeError, match="Missing key"):
         load_torch_checkpoint(str(tmp_path / "partial.pth"), fresh)
-    with pytest.raises(NotImplementedError, match="Resume and checkpoint interchange"):
-        load_torch_checkpoint(str(tmp_path / "model.ckpt"), fresh)
+    # the eval CLIs' loader takes a .pth through the same strict path
+    with pytest.raises(RuntimeError, match="Missing key"):
+        load_any_checkpoint(str(tmp_path / "partial.pth"), fresh)
 
 
 # --- data -----------------------------------------------------------------------
