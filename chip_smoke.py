@@ -4,9 +4,12 @@
 Phases, one JSON line each (any failure raises and exits non-zero, with no
 result line):
   device      the card, its power limit, the TF32 settings
-  build       K1 (csrc/ram_mix.cu) compiled with nvcc for sm_90a and the
-              host post-processing library (native/postproc.cpp) with g++,
-              the two started together
+  build       K1 (csrc/ram_mix.cu) and K2 (csrc/upsample2x.cu) compiled with
+              nvcc for sm_90a, the host post-processing library
+              (native/postproc.cpp) and the PNG unfilter (native/png.cpp)
+              with g++, all started together, beside ptxas's registers
+  cuda_tests  the card tests (tests/test_torch_port_cuda.py, marker cuda) in
+              a subprocess: all must pass
   kernel      K1 against its plain PyTorch version on the card, in full,
               band and delta modes, at the main path's shapes and at
               (65, 63), in band and delta modes at the prostate path's
@@ -47,7 +50,8 @@ result line):
               goes (torch.profiler over four batches of 8); the same path
               from final_model.ckpt must give the same six metrics
   profile     where a fundus step's and a prostate step's device time goes,
-              float32 and bfloat16 (torch.profiler over 5 steps each)
+              float32 and bfloat16, and a fundus step under --deterministic
+              (torch.profiler over 5 steps each)
   step_parity one step with K1 and the same step with the plain mix, from
               the same state and draws (TF32 off, deterministic cuDNN)
   bf16_step_parity
@@ -91,7 +95,27 @@ result line):
               most at 1e-4 of the voxels, Dice within 1e-3; the host
               library's largest component and 3-D surface distances
               bit-equal to scipy on the card's predictions
-Then the card line from nvidia-smi, the kernels line, and the result line.
+  png_tree    the fundus path from a PNG tree the port writes and reads
+              without PIL: 800^2 sources, 4 domains x 32 train pairs and 50
+              test pairs of target 0, every row filter and palette masks;
+              each file decodes to its array; from_tree equals the port's
+              resize of those arrays; cli.train trains the reference
+              configuration one epoch with its eval (K1 launches == steps);
+              cli.test_fundus_slice --save_result, every overlay read back;
+              decode and resize ms an image, the eval's load share
+  deterministic
+              --deterministic: fundus and prostate, float32 and bfloat16,
+              fit runs of 8 steps without, with, with and without the mode:
+              the two with it bit-equal (state, Adam moments, losses), K2
+              launches 8 a step and none in eval or without the mode; two
+              steps from one re-loaded state bit-equal; the mode's cost in
+              median step time
+  k2          K2 against its plain version (bit-equal) and torch's atomics
+              backward at every shape and dtype of those steps, with `ms`,
+              `kernel_ms`, plain and library times and the bytes bound
+Then the card line from nvidia-smi, the kernels line (K1 per mode and at
+the prostate shape; K2 summed over a deterministic step's 8 launches for
+each run, and at the largest shape), and the result line.
 Run artefacts go to chiprun_out/chip_smoke/ (prostate: chip_smoke/prostate/);
 the .pth and .ckpt files and the NIfTI volumes are deleted at exit.
 """
@@ -126,7 +150,14 @@ PROSTATE_BF16_STEPS = 12  # one eval, at the last step
 RESUME_STEPS = 5  # steps the resumed default run takes
 PROSTATE_VOLUMES, PROSTATE_DEPTH, PROSTATE_TEST_BATCH = 3, 32, 8
 PROSTATE_OUT = os.path.join(OUT, "prostate")
-DEVICE = "cuda"  # the prostate phases' device (a rehearsal on the CPU may set "cpu")
+PNG_OUT = os.path.join(OUT, "png_tree")
+PNG_SIZE, PNG_TRAIN, PNG_TEST = 800, 32, 50  # source size, train pairs a domain, target test pairs
+PNG_FILTERS = (0, 1, 2, 3, 4, "adaptive")  # the n-th file written takes PNG_FILTERS[n % 6]
+DET_STEPS = 8  # steps of each --deterministic run
+SOURCE_K2 = "ramdsir_tpu_torch/csrc/upsample2x.cu"
+# K2 has no TPU kernel: the JAX package's upsample is jax.image.resize, differentiated by XLA
+REPLACES_K2 = "ramdsir_tpu/models/unet.py:76"
+DEVICE = "cuda"  # the device of the prostate, png_tree and deterministic phases (a rehearsal on the CPU may set "cpu")
 TIMED = (f"full@{S}x{S}", f"band@{S}x{S}", f"delta@{S}x{S}", f"delta@{PS}x{PS}")
 
 
@@ -135,8 +166,19 @@ BF16 = {"compute_dtype": "bfloat16", "predict_dtype": "bfloat16"}
 MODE_PATHS = {"full": "full_vec", "band": "strided", "delta": "delta_flat"}
 
 
+def sync(torch):
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """A phase's JSON line, on stdout and appended to OUT/phases.jsonl (the
+    end of stdout is all that may come back from a long run)."""
+    line = json.dumps({"phase": phase, **kw})
+    print(line, flush=True)
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, "phases.jsonl"), "a") as f:
+        f.write(line + "\n")
 
 
 def nvidia_smi_line():
@@ -194,10 +236,34 @@ def cuda_time_ms(fn, reps=30, flush=None):
     return statistics.median(times)
 
 
-def kernel_time_ms(fn, key, reps=30, flush=None):
+def back_to_back_ms(fn, reps=20):
+    """Mean device time of one call among `reps` calls queued back to back
+    (CUDA events around them, behind a ~1 ms spin that lets the host enqueue
+    them all first; no flush between): the kernel's own time plus the gap
+    between two queued kernels, without the launch latency `cuda_time_ms`
+    holds."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_time_ms(fn, key, reps=30, flush=None, attempts=3):
     """Median device time of the kernels whose name holds `key`, one a
     call, from torch.profiler's CUDA activity: the kernel alone, without
-    the launch and event overhead that `cuda_time_ms` holds."""
+    the launch and event overhead that `cuda_time_ms` holds.  On the card
+    the profiler sometimes returns fewer kernel records than were launched
+    (13 of 20 and 19 of 30 in two calls of six); such a sample is taken
+    again, up to `attempts` times, and never used."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -205,17 +271,20 @@ def kernel_time_ms(fn, key, reps=30, flush=None):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if flush is not None:
-                flush()
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == DeviceType.CUDA and key in e.name]
-    if len(times) != reps:
-        raise SystemExit(f"profiler saw {len(times)} kernels named *{key}* in {reps} calls")
-    return statistics.median(times)
+    seen = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and key in e.name]
+        if len(times) == reps:
+            return statistics.median(times)
+        seen.append(len(times))
+    raise SystemExit(f"profiler saw {seen} kernels named *{key}* in {attempts} samples of {reps} calls")
 
 
 def kernel_cases(torch, tram, ram_mix, gen):
@@ -1056,6 +1125,7 @@ def set_exact_float32(torch):
 
 KERNEL_GROUPS = [  # (group, substrings of CUDA kernel names), first match wins
     ("K1 ram_mix", ("mix_full_vec_kernel", "mix_delta_flat_kernel", "mix_strided_kernel")),
+    ("K2 upsample2x_backward", ("upsample2x_backward_kernel",)),
     ("fft", ("fft", "radix", "regular_fft", "vector_fft")),
     ("batch_norm", ("batch_norm", "bn_", "welford")),
     ("layout nchw<->nhwc", ("nchwToNhwc", "nhwcToNchw")),
@@ -1068,18 +1138,22 @@ KERNEL_GROUPS = [  # (group, substrings of CUDA kernel names), first match wins
 
 def phase_profile(torch, ram_mix, arrays, prostate, steps=5, warmup=3):
     """Where a default fundus step's and a prostate step's device time goes,
-    in float32 and in bfloat16: torch.profiler over `steps` steps after
-    `warmup`, each step synchronised as `fit` does."""
+    in float32 and in bfloat16, and a fundus float32 step under
+    deterministic_mode (K2 for the upsample's backward): torch.profiler over
+    `steps` steps after `warmup`, each step synchronised as `fit` does."""
     from ramdsir_tpu_torch.config import TrainConfig
     from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline, DeviceProstatePipeline
 
-    for run in ("default", "bf16"):
-        cfg = main_path_config(TrainConfig, run, os.path.join(OUT, "profile"))
+    from ramdsir_tpu_torch.train.loop import deterministic_mode
+
+    for run in ("default", "bf16", "default_deterministic"):
+        cfg = main_path_config(TrainConfig, run.replace("_deterministic", ""), os.path.join(OUT, "profile"))
         pipe = DeviceFundusPipeline.from_arrays(
             arrays, cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx,
             is_out_domain=True, seed=cfg.seed, precompute_donor_amp=True, device="cuda",
         )
-        profile_steps(torch, run, cfg, pipe, steps, warmup)
+        with deterministic_mode(run.endswith("deterministic")):
+            profile_steps(torch, run, cfg, pipe, steps, warmup)
     for run in ("prostate", "prostate_bf16"):
         cfg = prostate_config(TrainConfig, os.path.join(PROSTATE_OUT, "profile"), "unused", run == "prostate_bf16")
         pipe = DeviceProstatePipeline.from_arrays(
@@ -1160,6 +1234,300 @@ def profile_eval_forward(torch, predict, imgs, batch=8, reps=4):
                 **device_breakdown(prof, wall_us, reps, "batch"))
 
 
+# --- the fundus path from a PNG tree ------------------------------------------------
+
+
+def phase_png_tree(torch, np, ram_mix):
+    """The reference fundus configuration trained and scored from a PNG tree
+    that the port writes and reads itself (no PIL on this machine): 800^2
+    source images, 4 domains x PNG_TRAIN train pairs, PNG_TEST test pairs in
+    target domain 0 (one in the others), every row filter and the adaptive
+    choice across the files, palette masks in Domain3.  Every file decodes
+    to the array written; `DeviceFundusPipeline.from_tree` equals the port's
+    resize of those arrays; cli.train trains one epoch with its eval
+    (K1 launches == steps); cli.test_fundus_slice scores it with
+    --save_result, and every overlay decodes to the array written."""
+    from ramdsir_tpu_torch.cli.test_fundus_slice import main as eval_main
+    from ramdsir_tpu_torch.cli.train import main as train_main
+    from ramdsir_tpu_torch.config import FUNDUS_DOMAINS, TrainConfig
+    from ramdsir_tpu_torch.data import png
+    from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
+    from ramdsir_tpu_torch.data.fundus import FundusMultiDataset, fundus_multilabel
+    from ramdsir_tpu_torch.data.synthetic import fundus_tree_pairs, make_fundus_tree
+    from ramdsir_tpu_torch.ops.image import convert, resize
+    from ramdsir_tpu_torch.ops.ram import banded_amplitude_spectrum
+
+    shutil.rmtree(PNG_OUT, ignore_errors=True)
+    data_root = os.path.join(PNG_OUT, "data")
+    tree = dict(per_domain_train=PNG_TRAIN, per_domain_test={d: PNG_TEST if i == 0 else 1 for i, d in enumerate(FUNDUS_DOMAINS)},
+                size=PNG_SIZE, seed=2)
+    t0 = time.perf_counter()
+    base = make_fundus_tree(data_root, filter_types=PNG_FILTERS, palette_mask_domains=("Domain3",), **tree)
+    write_s = time.perf_counter() - t0
+
+    # every file back to its array; the host's decode and resize costs; the
+    # expected device arrays of the three source domains (1, 2, 3)
+    cfg = TrainConfig(dataset="fundus", domain_idxs=(1, 2, 3), test_domain_idx=0, image_size=S).resolve()
+    sources = [FUNDUS_DOMAINS[d] for d in cfg.domain_idxs]
+    want = {"images": {d: [] for d in sources}, "masks": {d: [] for d in sources}}
+    cost = {"decode_rgb": [], "decode_mask": [], "resize_bilinear": [], "resize_nearest": []}
+    files, modes = 0, set()
+    for dom, split, i, img, mask in fundus_tree_pairs(**tree):
+        for kind, arr in (("image", img), ("mask", mask)):
+            path = os.path.join(base, dom, split, kind, f"{i:03d}.png")
+            t = time.perf_counter()
+            dec = png.decode(path)
+            cost["decode_rgb" if kind == "image" else "decode_mask"].append(time.perf_counter() - t)
+            got = convert(dec, "RGB" if kind == "image" else "L")
+            if not np.array_equal(got, arr):
+                raise SystemExit(f"png_tree: {path} decodes to other values than were written")
+            files += 1
+            modes.add(dec.mode)
+        if split == "train" and dom in sources:
+            t = time.perf_counter()
+            small = resize(img, (S, S), "bilinear")
+            cost["resize_bilinear"].append(time.perf_counter() - t)
+            t = time.perf_counter()
+            gray = resize(mask, (S, S), "nearest")
+            cost["resize_nearest"].append(time.perf_counter() - t)
+            want["images"][dom].append(small)
+            want["masks"][dom].append(fundus_multilabel(gray).astype(np.uint8))
+    t0 = time.perf_counter()
+    pipe = DeviceFundusPipeline.from_tree(
+        [FundusMultiDataset(base, [d]) for d in cfg.domain_idxs], cfg.batch_size_list, base, S, 0,
+        is_out_domain=True, seed=cfg.seed, precompute_donor_amp=True, device=DEVICE,
+    )
+    sync(torch)
+    from_tree_s = time.perf_counter() - t0
+    images = np.concatenate([np.stack(want["images"][d]) for d in sources])
+    masks = np.concatenate([np.stack(want["masks"][d]) for d in sources])
+    donor_amp = banded_amplitude_spectrum(torch.from_numpy(images).to(DEVICE))  # the donor pool: the same images
+    from_tree_equal = {
+        "images": torch.equal(pipe.device_data["images"].cpu(), torch.from_numpy(images).permute(0, 3, 1, 2)),
+        "masks": torch.equal(pipe.device_data["masks"].cpu(), torch.from_numpy(masks).permute(0, 3, 1, 2)),
+        "donor_amp": torch.equal(pipe.device_data["donor_amp"], donor_amp),
+    }
+    del pipe
+
+    # the train CLI: one epoch of the reference configuration, its eval
+    run_dir = os.path.join(PNG_OUT, "run")
+    ram_mix.launches = 0
+    ram_mix.launches_by_path.update(dict.fromkeys(ram_mix.launches_by_path, 0))
+    t0 = time.perf_counter()
+    summary = train_main(["--data_root", data_root, "--dataset", "fundus", "--domain_idxs", "1,2,3",
+                          "--test_domain_idx", "0", "--ram", "--rec", "--consistency", "--consistency_type", "kd",
+                          "--is_out_domain", "--image_size", str(S), "--epochs", "1", "--save_path", run_dir,
+                          "--device", DEVICE])
+    sync(torch)
+    train_s = time.perf_counter() - t0
+    k1 = ram_mix.launches
+    timing = summary["eval_timing"]
+
+    # the eval CLI with --save_result: every overlay decodes to what was written
+    written = {}
+    write = png.write
+
+    def recording_write(path, array, **kw):
+        written[path] = np.array(array)
+        return write(path, array, **kw)
+
+    eval_dir = os.path.join(PNG_OUT, "eval")
+    t0 = time.perf_counter()
+    with mock.patch.object(png, "write", recording_write):
+        res = eval_main(["--model_file", os.path.join(run_dir, "final_model.pth"), "--data_dir", data_root,
+                         "--datasetTest", "0", "--test_prediction_save_path", eval_dir, "--batch_size", "8",
+                         "--image_size", str(S), "--save_result", "--device", DEVICE])
+    sync(torch)
+    eval_cli_s = time.perf_counter() - t0
+    round_trip = sum(np.array_equal(png.decode(p).array, a) for p, a in written.items())
+    six = {k: getattr(res, k) for k in ("cup_dice", "disc_dice", "hd_oc", "hd_od", "asd_oc", "asd_od")}
+    ms = lambda xs: 1e3 * statistics.median(xs)
+    entry = dict(
+        source_size=PNG_SIZE, domains=len(FUNDUS_DOMAINS), per_domain_train=PNG_TRAIN, target_test=PNG_TEST,
+        files=files, modes=sorted(modes), filters=[str(f) for f in PNG_FILTERS], write_s=write_s,
+        decode_ms_per_image={"rgb": ms(cost["decode_rgb"]), "mask": ms(cost["decode_mask"])},
+        resize_ms_per_image={"bilinear_rgb": ms(cost["resize_bilinear"]), "nearest_mask": ms(cost["resize_nearest"])},
+        from_tree_s=from_tree_s, from_tree_images=len(images), from_tree_equal=from_tree_equal,
+        train_s=train_s, steps=summary["steps"], k1_launches=k1, median_step_ms=summary["median_step_ms"],
+        cup_dice=summary["cup_dice"], disc_dice=summary["disc_dice"],
+        eval_load_share=timing["load"] / timing["wall"], **eval_fields(timing, PNG_TEST),
+        eval_cli=dict(seconds=eval_cli_s, num=res.num, **six, load_share=res.timing["load"] / res.timing["wall"],
+                      save_share=res.timing["save"] / res.timing["wall"], overlays=len(written),
+                      overlays_round_trip=round_trip),
+    )
+    emit("png_tree", **entry)
+    if files != 2 * (len(FUNDUS_DOMAINS) * PNG_TRAIN + PNG_TEST + len(FUNDUS_DOMAINS) - 1) or modes != {"RGB", "L", "P"}:
+        raise SystemExit(f"png_tree: {files} files checked in modes {modes}")
+    if not all(from_tree_equal.values()):
+        raise SystemExit(f"png_tree: from_tree differs from the resized arrays: {from_tree_equal}")
+    steps = PNG_TRAIN // min(cfg.batch_size_list)
+    if summary["steps"] != steps or k1 != steps or timing["batches"] != -(-PNG_TEST // cfg.test_batch_size):
+        raise SystemExit(f"png_tree: {summary['steps']} steps, {k1} K1 launches, {timing['batches']} eval batches")
+    if res.num != PNG_TEST or not all(np.isfinite(v) for v in six.values()):
+        raise SystemExit(f"png_tree: the eval CLI scored {res.num} images: {six}")
+    if len(written) != PNG_TEST or round_trip != PNG_TEST:
+        raise SystemExit(f"png_tree: {len(written)} overlays written, {round_trip} read back equal")
+
+
+# --- --deterministic and K2 ---------------------------------------------------------
+
+
+def k2_bytes(shape, itemsize):
+    """The least bytes K2 must move for an (N, C, H, W) input gradient: the
+    (N, C, 2H, 2W) output gradient read once, the input gradient written once."""
+    n, c, h, w = shape
+    return itemsize * (4 * n * c * h * w + n * c * h * w)
+
+
+def phase_k2(torch, bw, shapes):
+    """K2 against its plain version on the card at each (shape, dtype) a
+    deterministic step gives it, bit for bit, and against torch's own
+    upsample_bilinear2d backward (atomics, another summation order) of the
+    same gradient in float32; beside it, torch's backward in the gradient's
+    own dtype (in bfloat16 its atomics round every add); at
+    each: `ms` as K1's, `kernel_ms`, the plain version's and the
+    library call's times, and the bytes bound.  K2's `kernel_ms` is
+    `back_to_back_ms` (torch.profiler dropped some of K2's kernels on the
+    card: it saw 13 of 20)."""
+    from ramdsir_tpu_torch.ops import upsample
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    flush = lambda: flush_buf.zero_()
+    out = {}
+    for shape, dtype in shapes:
+        n, c, h, w = shape
+        g = torch.randn((n, c, 2 * h, 2 * w), generator=gen, device="cuda").to(dtype)
+        before = upsample.launches
+        got = upsample.upsample2x_backward(g)
+        want = upsample.upsample2x_backward_plain(g)
+        lib = lambda x=g: torch.ops.aten.upsample_bilinear2d_backward(x, [2 * h, 2 * w], list(shape), False, 2.0, 2.0)
+        ref, ref32 = lib(), lib(g.float())
+        torch.cuda.synchronize()
+        if upsample.launches != before + 1:
+            raise SystemExit(f"K2 at {shape}: {upsample.launches - before} launches for one call")
+        err = float((got.float() - want.float()).abs().max())
+        lib_err = float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+        lib32_err = float((got.float() - ref32).abs().max() / ref32.abs().max())
+        key = f"{'x'.join(map(str, shape))}:{str(dtype).split('.')[-1]}"
+        entry = dict(shape=list(shape), dtype=str(dtype).split(".")[-1], max_abs_err=err, bit_equal=err == 0.0,
+                     library_max_rel_err=lib_err, float32_library_max_rel_err=lib32_err,
+                     ms=cuda_time_ms(lambda: upsample.upsample2x_backward(g), reps=20, flush=flush),
+                     kernel_ms=back_to_back_ms(lambda: upsample.upsample2x_backward(g)),
+                     plain_ms=cuda_time_ms(lambda: upsample.upsample2x_backward_plain(g), reps=10, flush=flush),
+                     library_ms=cuda_time_ms(lib, reps=20, flush=flush),
+                     bound_ms=1e3 * k2_bytes(shape, g.element_size()) / bw, bound_by="bytes")
+        emit("k2", case=key, **entry)
+        # against torch's float32 backward of the same gradient: float32 sums in
+        # another order (1e-5), and in bfloat16 K2's one rounding (2^-8)
+        if not entry["bit_equal"] or lib32_err > (1e-5 if dtype == torch.float32 else 2.0**-8):
+            raise SystemExit(f"K2 at {key}: {err} from its plain version, {lib32_err} from torch's float32 backward")
+        out[key] = entry
+    return out
+
+
+def _same_tree(np, x, y):
+    if isinstance(x, dict):
+        return isinstance(y, dict) and x.keys() == y.keys() and all(_same_tree(np, x[k], y[k]) for k in x)
+    return x.dtype == y.dtype and x.shape == y.shape and np.array_equal(x, y)
+
+
+DET_RUNS = ("default", "deterministic", "deterministic_again", "default_again")  # in turns, one call
+
+
+def phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, prostate_root):
+    """--deterministic on the card: for fundus and prostate, float32 and
+    bfloat16, four `fit` runs of DET_STEPS steps from one seed, in turns
+    without and with the mode.  The two deterministic runs must end in
+    bit-equal parameters, BN statistics and Adam moments (their
+    final_model.ckpt) and log bit-equal losses; K2 launches 8 a step with
+    --rec and none in eval (launches == 8 x steps), none without the mode;
+    K1 launches == steps in every run.  Two steps from one re-loaded state
+    under the mode are bit-equal (without it they part by ~9e-6: the
+    atomics of torch's upsample backward).
+    Every (shape, dtype) K2 met then goes through phase_k2."""
+    import dataclasses
+
+    from ramdsir_tpu_torch.config import TrainConfig
+    from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline, DeviceProstatePipeline
+    from ramdsir_tpu_torch.ops import upsample
+    from ramdsir_tpu_torch.train.checkpoint import read_checkpoint
+    from ramdsir_tpu_torch.train.loop import deterministic_mode, fit
+    from ramdsir_tpu_torch.train.steps import sample_step_draws
+
+    shapes, runs = [], {}
+    record = upsample.upsample2x_backward
+
+    def recording(grad):
+        key = (tuple(grad.shape[:2]) + (grad.shape[2] // 2, grad.shape[3] // 2), grad.dtype)
+        if key not in shapes:
+            shapes.append(key)
+        return record(grad)
+
+    for dataset, bf16 in (("fundus", False), ("fundus", True), ("prostate", False), ("prostate", True)):
+        name = dataset + ("_bf16" if bf16 else "")
+        root = os.path.join(OUT, "deterministic", name)
+        if dataset == "fundus":
+            cfg0 = dataclasses.replace(main_path_config(TrainConfig, "bf16" if bf16 else "default", root), device=DEVICE)
+            make_pipe = lambda cfg: DeviceFundusPipeline.from_arrays(
+                arrays, cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx, is_out_domain=True,
+                seed=cfg.seed, precompute_donor_amp=cfg.ram_precompute_donor_amp, device=DEVICE)
+            data = testset
+        else:
+            cfg0 = prostate_config(TrainConfig, root, prostate_root, bf16)
+            make_pipe = lambda cfg: DeviceProstatePipeline.from_arrays(
+                prostate, cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx, seed=cfg.seed, device=DEVICE)
+            data = None
+        out = {}
+        for rep in DET_RUNS:
+            cfg = dataclasses.replace(cfg0, save_path=os.path.join(root, rep), deterministic=rep.startswith("det"))
+            shutil.rmtree(cfg.save_path, ignore_errors=True)
+            ram_mix.launches, upsample.launches = 0, 0
+            with mock.patch.object(upsample, "upsample2x_backward", recording):
+                summary = fit(cfg, max_steps=DET_STEPS, pipeline=make_pipe(cfg), testset=data)
+            sync(torch)
+            rows = [json.loads(line) for line in open(os.path.join(cfg.save_path, "log", "metrics.jsonl"))]
+            out[rep] = dict(summary=summary, k1=ram_mix.launches, k2=upsample.launches,
+                            losses=[{k: v for k, v in r.items() if k.startswith("loss/")} for r in rows if "loss/loss" in r],
+                            state=read_checkpoint(summary["resume_checkpoint"])["state"])
+        a, b = out["deterministic"], out["deterministic_again"]
+        state_equal = _same_tree(np, a["state"], b["state"])
+        losses_equal = a["losses"] == b["losses"] and len(a["losses"]) == DET_STEPS
+        med = {rep: out[rep]["summary"]["median_step_ms"] for rep in DET_RUNS}
+        off = statistics.mean([med["default"], med["default_again"]])
+        on = statistics.mean([med["deterministic"], med["deterministic_again"]])
+        # two steps from one re-loaded state, under the mode
+        src = a["summary"]["resume_checkpoint"]
+        pipe = make_pipe(cfg0)
+        row = next(iter(pipe))
+        draws = sample_step_draws(torch.Generator().manual_seed(6), sum(cfg0.batch_size_list), torch.device(DEVICE),
+                                  crop=dataset == "fundus")
+        with deterministic_mode(True):
+            cublas_config = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+            one = [step_from_seed(torch, ram_mix, cfg0, pipe, row, draws, load=src, device=DEVICE)[:2] for _ in range(2)]
+        loss_rel, param_err, stat_err, _ = step_distance(torch, one[1], one[0])
+        entry = dict(run=name, steps=DET_STEPS, state_tensors_bit_equal=state_equal, losses_bit_equal=losses_equal,
+                     k1_launches={rep: out[rep]["k1"] for rep in DET_RUNS},
+                     k2_launches={rep: out[rep]["k2"] for rep in DET_RUNS},
+                     median_step_ms=med, mode_cost_ms=on - off, mode_cost_share=(on - off) / off,
+                     reloaded_step_params_max_abs=param_err, reloaded_step_losses_max_rel=loss_rel,
+                     reloaded_step_running_stats_max_abs=stat_err,
+                     cublas_workspace_config_in_mode=cublas_config,
+                     deterministic_after=torch.are_deterministic_algorithms_enabled())
+        emit("deterministic", **entry)
+        if not (state_equal and losses_equal):
+            raise SystemExit(f"deterministic {name}: the two runs differ (state {state_equal}, losses {losses_equal})")
+        if any(out[rep]["k1"] != DET_STEPS for rep in DET_RUNS):
+            raise SystemExit(f"deterministic {name}: K1 launches {entry['k1_launches']}, expected {DET_STEPS} each")
+        want_k2 = {rep: 8 * DET_STEPS if rep.startswith("det") else 0 for rep in DET_RUNS}
+        if entry["k2_launches"] != want_k2:
+            raise SystemExit(f"deterministic {name}: K2 launches {entry['k2_launches']}, expected {want_k2}")
+        if param_err != 0.0 or loss_rel != 0.0 or stat_err != 0.0 or entry["deterministic_after"]:
+            raise SystemExit(f"deterministic {name}: two steps from one re-loaded state differ: {entry}")
+        runs[name] = entry
+    return runs, shapes
+
+
 # --- build -------------------------------------------------------------------
 
 
@@ -1169,37 +1537,71 @@ def timed_call(fn):
     return out, time.perf_counter() - t0
 
 
-def phase_build(ram_mix, native):
-    """Build K1's library and the host library and, beside them, ask ptxas
-    for the kernel's registers and spills (two nvcc and one g++ process,
-    started together)."""
+def phase_build(ram_mix, upsample, native):
+    """Build K1's and K2's libraries and the two host libraries and, beside
+    them, ask ptxas for each kernel's registers and spills (four nvcc and two
+    g++ processes, started together)."""
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(2) as pool:
-        ptxas = subprocess.Popen(
-            [ram_mix._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-Xptxas", "-v", "-cubin", "-o", os.path.join(tmp, "ram_mix.cubin"), ram_mix.SOURCE],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
+    sources = {"ram_mix": ram_mix.SOURCE, "upsample2x": upsample.SOURCE}
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(4) as pool:
+        ptxas = {
+            name: subprocess.Popen(
+                [ram_mix._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                 "-Xptxas", "-v", "-cubin", "-o", os.path.join(tmp, f"{name}.cubin"), src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for name, src in sources.items()
+        }
         try:
-            k1 = pool.submit(timed_call, ram_mix.build_library)
-            host = pool.submit(timed_call, native.build_library)
-            (path, k1_s), (host_path, host_s) = k1.result(), host.result()
+            builds = {
+                "k1": pool.submit(timed_call, ram_mix.build_library),
+                "k2": pool.submit(timed_call, upsample.build_library),
+                "host": pool.submit(timed_call, native.build_library),
+                "png": pool.submit(timed_call, lambda: native.build_library(native.PNG_SOURCE)),
+            }
+            done = {k: f.result() for k, f in builds.items()}
             ram_mix._library()
+            upsample._library()
             native.library()
+            native.png_library()
         finally:
-            ptxas_out, _ = ptxas.communicate(timeout=600)
+            ptxas_out = "".join(p.communicate(timeout=600)[0] for p in ptxas.values())
     # ptxas prints each kernel's name, then its spills, then its registers
     info, kernel = {}, None
     for ln in ptxas_out.splitlines():
         if "Compiling entry function" in ln:
-            found = re.search(r"mix_[a-z_]+?_kernel", ln)
+            found = re.search(r"(mix_[a-z_]+?_kernel|upsample2x_backward_kernel)", ln)
             kernel = found.group(0) if found else ln.strip()
-            kernel += "<full>" if "ILb1E" in ln else "<delta>" if "ILb0ELb1E" in ln else "<band>" if "ILb0ELb0E" in ln else ""
+            if kernel.startswith("mix_"):
+                kernel += "<full>" if "ILb1E" in ln else "<delta>" if "ILb0ELb1E" in ln else "<band>" if "ILb0ELb0E" in ln else ""
+            else:
+                kernel += "<bfloat16>" if "bfloat16" in ln else "<float32>"
         elif kernel and ("registers" in ln or "spill" in ln):
             info.setdefault(kernel, []).append(ln.split(":", 1)[-1].strip())
-    emit("build", library=os.path.relpath(path, REPO), seconds=time.perf_counter() - t0, k1_seconds=k1_s,
-         nvcc_flags=list(ram_mix.NVCC_FLAGS), ptxas=info, host_library=os.path.relpath(host_path, REPO),
-         host_library_seconds=host_s, host_flags=[native.CXX, *native.CXX_FLAGS])
+    emit("build", library=os.path.relpath(done["k1"][0], REPO), seconds=time.perf_counter() - t0,
+         k1_seconds=done["k1"][1], k2_library=os.path.relpath(done["k2"][0], REPO), k2_seconds=done["k2"][1],
+         nvcc_flags=list(ram_mix.NVCC_FLAGS), ptxas=info, host_library=os.path.relpath(done["host"][0], REPO),
+         host_library_seconds=done["host"][1], png_library=os.path.relpath(done["png"][0], REPO),
+         png_library_seconds=done["png"][1], host_flags=[native.CXX, *native.CXX_FLAGS])
+
+
+def phase_cuda_tests():
+    """The card tests (marker `cuda`, tests/test_torch_port_cuda.py) in a
+    subprocess, after the build, so they reuse its libraries; every one must
+    pass, none may skip."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "tests/test_torch_port_cuda.py"],
+        cwd=REPO, capture_output=True, text=True, timeout=900,
+    )
+    tail = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    counts = {k: int(n) for n, k in re.findall(r"(\d+) (passed|failed|skipped|error|errors)", tail)}
+    emit("cuda_tests", command="python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py",
+         rc=proc.returncode, summary=tail, seconds=time.perf_counter() - t0)
+    if proc.returncode != 0 or not counts.get("passed") or set(counts) != {"passed"}:
+        print(proc.stdout[-6000:], proc.stderr[-3000:], file=sys.stderr)
+        raise SystemExit(f"cuda_tests: {tail or 'no summary'} (rc {proc.returncode})")
+    return counts["passed"]
 
 
 def main():
@@ -1211,13 +1613,14 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
         return 1
-    if not os.path.isfile(os.path.join(REPO, "ramdsir_tpu_torch", "csrc", "ram_mix.cu")):
+    if not all(os.path.isfile(os.path.join(REPO, rel)) for rel in (SOURCE_REL, SOURCE_K2, "tests/test_torch_port_cuda.py")):
         print("chip_smoke: run it from a checkout of the repository (ramdsir_tpu_torch/ is missing)", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
     from ramdsir_tpu_torch.train.loop import tf32_settings
 
-    os.makedirs(OUT, exist_ok=True)
+    shutil.rmtree(OUT, ignore_errors=True)
+    os.makedirs(OUT)
     card = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
     bw = peak_bandwidth(name)
@@ -1227,11 +1630,12 @@ def main():
     try:
         return run_phases(torch, card, name, bw)
     finally:
-        # the checkpoints are ~10-30 MB each and the volumes ~19 MB: keep the
-        # logs, drop the weights and the data
+        # the checkpoints are ~10-30 MB each, the volumes ~19 MB, the 800^2
+        # PNG tree ~330 MB and its overlays ~2 MB each: keep the logs, drop
+        # the weights and the data
         for root, _, files in os.walk(OUT):
             for f in files:
-                if f.endswith((".pth", ".ckpt", ".nii.gz")):
+                if f.endswith((".pth", ".ckpt", ".nii.gz", ".png")):
                     os.remove(os.path.join(root, f))
 
 
@@ -1248,9 +1652,10 @@ def run_phases(torch, card, name, bw):
         prostate_volumes,
     )
     from ramdsir_tpu_torch.ops import ram as tram
-    from ramdsir_tpu_torch.ops import ram_mix
+    from ramdsir_tpu_torch.ops import ram_mix, upsample
 
-    phase_build(ram_mix, native)
+    phase_build(ram_mix, upsample, native)
+    phase_cuda_tests()
     kernels = phase_kernel(torch, tram, ram_mix, bw)
     phase_ram_oracle(torch, tram, np)
 
@@ -1274,6 +1679,9 @@ def run_phases(torch, card, name, bw):
     prostate_run = phase_prostate_path(torch, np, ram_mix, prostate, data_root)
     phase_prostate_path(torch, np, ram_mix, prostate, data_root, bf16_beside=prostate_run)
     phase_prostate_eval_cli(torch, np, data_root)
+    phase_png_tree(torch, np, ram_mix)
+    det_runs, k2_shapes = phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, data_root)
+    k2 = phase_k2(torch, bw, k2_shapes)
 
     phase_profile(torch, ram_mix, arrays, prostate)
     phase_step_parity(torch, np, ram_mix, arrays)
@@ -1302,6 +1710,28 @@ def run_phases(torch, card, name, bw):
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
         "floor_ms": k["floor_ms"], "kernel_ms": k["kernel_ms"], "ms_clean_flush": k["ms_clean_flush"],
         "floor_ms_clean_flush": k["floor_ms_clean_flush"], "path": k["path"],
+    })
+    # K2: the sum over the 8 launches of one deterministic step (each shape
+    # once a step), for each run, and the largest shape alone
+    for run, det in det_runs.items():
+        dtype = "bfloat16" if run.endswith("bf16") else "float32"
+        step_cases = [k2[f"{'x'.join(map(str, shape))}:{dtype}"] for shape, dt in k2_shapes
+                      if str(dt).endswith(dtype) and (shape[0] in (B, 2 * B)) == run.startswith("fundus")]
+        if len(step_cases) != 8:
+            raise SystemExit(f"K2: {len(step_cases)} shapes in a {run} step, expected 8")
+        total = lambda key: sum(c[key] for c in step_cases)
+        line["kernels"].append({
+            "name": f"upsample2x_backward[{run} step: 8 shapes]", "route": "cuda", "source": SOURCE_K2,
+            "replaces": REPLACES_K2, "launches": det["k2_launches"]["deterministic"],
+            "max_abs_err": max(c["max_abs_err"] for c in step_cases), "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"), "bound_by": "bytes", "library_ms": total("library_ms"),
+            "kernel_ms": total("kernel_ms"), "shapes": [c["shape"] for c in step_cases],
+        })
+    big = k2[f"{2 * B}x32x{S // 2}x{S // 2}:float32"]
+    line["kernels"].append({
+        "name": f"upsample2x_backward[{2 * B}x32x{S // 2}x{S // 2} float32]", "route": "cuda", "source": SOURCE_K2,
+        "replaces": REPLACES_K2, "launches": det_runs["fundus"]["k2_launches"]["deterministic"] // 8,
+        **{k: big[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms")},
     })
     print(card, flush=True)
     print(json.dumps(line), flush=True)

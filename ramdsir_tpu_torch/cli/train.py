@@ -101,6 +101,7 @@ def main(argv=None):
     )
     summary = fit(cfg, max_steps=a.max_steps)
     print(summary)
+    return summary
 
 
 if __name__ == "__main__":

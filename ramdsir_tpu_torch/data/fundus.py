@@ -4,7 +4,8 @@ and `data/transforms.py` the device pipeline and eval need).
 Layout: `base_dir/DomainX_train.list` manifests with lines
 "DomainX/rel_img DomainX/rel_mask" relative to base_dir, and per-domain
 `base_dir/DomainX/{train,test}.list` manifests relative to base_dir/DomainX.
-PIL is imported inside the functions that decode.
+Files are decoded by the port's own PNG codec (`data/png.py`) and converted
+and resized by `ops/image.py`, bit-equal to the JAX package's PIL reads.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from ramdsir_tpu_torch.config import FUNDUS_DOMAINS
+from ramdsir_tpu_torch.data import png
+from ramdsir_tpu_torch.ops.image import convert, resize
 
 
 def _read_list(path: str) -> List[str]:
@@ -24,13 +27,10 @@ def _read_list(path: str) -> List[str]:
 def _load_resized(path: str, size: Optional[int], mode: str) -> np.ndarray:
     """Decode an image ("RGB" or "L"), resized bilinear (images) or nearest
     (masks) to size x size when size is given."""
-    from PIL import Image
-
-    img = Image.open(path).convert(mode)
+    img = convert(png.decode(path), mode)
     if size is not None:
-        resample = Image.NEAREST if mode == "L" else Image.BILINEAR
-        img = img.resize((size, size), resample)
-    return np.asarray(img, np.uint8)
+        img = resize(img, (size, size), "nearest" if mode == "L" else "bilinear")
+    return img
 
 
 def decode_fundus_mask(gray: np.ndarray) -> np.ndarray:
@@ -71,16 +71,14 @@ class FundusDataset:
         return len(self.id_path)
 
     def __getitem__(self, index: int):
-        from PIL import Image
-
         img_rel, mask_rel = self.id_path[index].split(" ")[:2]
-        img = Image.open(os.path.join(self.base_dir, self.domain, img_rel)).convert("RGB")
-        mask = Image.open(os.path.join(self.base_dir, self.domain, mask_rel)).convert("L")
+        img = _load_resized(os.path.join(self.base_dir, self.domain, img_rel), None, "RGB")
+        mask = _load_resized(os.path.join(self.base_dir, self.domain, mask_rel), None, "L")
         size = (self.image_size, self.image_size)
         return {
-            "img": np.asarray(img.resize(size, Image.BILINEAR), np.uint8),
-            "mask": np.asarray(mask.resize(size, Image.NEAREST), np.uint8),
-            "mask_orig": fundus_multilabel(np.array(mask)).astype(np.uint8),
+            "img": resize(img, size, "bilinear"),
+            "mask": resize(mask, size, "nearest"),
+            "mask_orig": fundus_multilabel(mask).astype(np.uint8),
             "id": self.id_path[index],
         }
 

@@ -3,8 +3,8 @@ port of `ramdsir_tpu/data/synthetic.py`).
 
 `fundus_arrays` builds the stacked train arrays and `fundus_test_samples` a
 test split in memory, writing nothing; `make_fundus_tree` writes the PNG
-tree + .list manifests the fundus reader expects (it needs PIL, imported
-inside).  `prostate_arrays` and `prostate_volumes` draw the prostate train
+tree + .list manifests the fundus reader expects, through the port's own PNG
+encoder.  `prostate_arrays` and `prostate_volumes` draw the prostate train
 slices and eval volumes in memory; `make_prostate_tree` and
 `make_prostate_volumes` write the same draws as the .npy slice tree and the
 .nii.gz volumes the JAX package's generators write.
@@ -12,15 +12,19 @@ slices and eval volumes in memory; `make_prostate_tree` and
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Sequence, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, List, Mapping, Sequence, Tuple, Union
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
 from ramdsir_tpu_torch.config import FUNDUS_DOMAINS, PROSTATE_DOMAINS, PROSTATE_VOLUME_DOMAINS
+from ramdsir_tpu_torch.data import png
 from ramdsir_tpu_torch.data.fundus import fundus_multilabel
 from ramdsir_tpu_torch.data.nifti import write_nifti
+from ramdsir_tpu_torch.ops.image import resize
+
+# the gray levels of a fundus mask, as a palette (index 0, 1, 2 -> 0, 128, 255)
+MASK_PALETTE = np.array([[0, 0, 0], [128, 128, 128], [255, 255, 255]], np.uint8)
 
 
 def _fundus_pair(rng: np.random.Generator, size: int):
@@ -61,59 +65,84 @@ def fundus_arrays(
 def fundus_test_samples(
     num: int = 50, size: int = 512, image_size: int = 256, seed: int = 0
 ) -> List[Dict]:
-    """An in-memory test split of one domain, without PIL: `num` samples
-    {img, mask, mask_orig, id} as `data.fundus.FundusDataset` gives them,
-    drawn by `_fundus_pair` at size x size.  `img` is resized to image_size
-    by torch's antialiased bilinear resize (PIL's bilinear filter is
-    antialiased too, the values differ slightly), `mask` by PIL's nearest
-    rule."""
+    """An in-memory test split of one domain: `num` samples {img, mask,
+    mask_orig, id} as `data.fundus.FundusDataset` gives them for the same
+    pairs written as PNGs, drawn by `_fundus_pair` at size x size."""
     rng = np.random.default_rng(seed)
-    near = np.floor((np.arange(image_size) + 0.5) * size / image_size).astype(np.int64)
+    out_size = (image_size, image_size)
     samples = []
     for i in range(num):
         img, mask = _fundus_pair(rng, size)
-        x = torch.from_numpy(img).permute(2, 0, 1)[None].float()
-        small = F.interpolate(x, size=(image_size, image_size), mode="bilinear", align_corners=False, antialias=True)
         samples.append({
-            "img": small[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy(),
-            "mask": mask[near][:, near],
+            "img": resize(img, out_size, "bilinear"),
+            "mask": resize(mask, out_size, "nearest"),
             "mask_orig": fundus_multilabel(mask).astype(np.uint8),
             "id": f"test/image/{i:03d}.png test/mask/{i:03d}.png",
         })
     return samples
 
 
-def make_fundus_tree(
-    root: str,
+def fundus_tree_pairs(
     per_domain_train: int = 6,
-    per_domain_test: int = 3,
+    per_domain_test: Union[int, Mapping[str, int]] = 3,
     size: int = 96,
     seed: int = 0,
     domains: Sequence[str] = tuple(FUNDUS_DOMAINS),
-) -> str:
-    from PIL import Image
-
+) -> Iterator[Tuple[str, str, int, np.ndarray, np.ndarray]]:
+    """(domain, split, index, image, gray mask) of every pair
+    `make_fundus_tree` writes, in its order: per domain the train split,
+    then the test split (per_domain_test: one count, or one per domain)."""
     rng = np.random.default_rng(seed)
+    for dom in domains:
+        n_test = per_domain_test if isinstance(per_domain_test, int) else per_domain_test[dom]
+        for split, n in (("train", per_domain_train), ("test", n_test)):
+            for i in range(n):
+                yield (dom, split, i) + _fundus_pair(rng, size)
+
+
+def make_fundus_tree(
+    root: str,
+    per_domain_train: int = 6,
+    per_domain_test: Union[int, Mapping[str, int]] = 3,
+    size: int = 96,
+    seed: int = 0,
+    domains: Sequence[str] = tuple(FUNDUS_DOMAINS),
+    filter_types: Sequence[Union[int, str]] = (png.ADAPTIVE,),
+    palette_mask_domains: Sequence[str] = (),
+) -> str:
+    """`fundus_tree_pairs` written as `root/fundus/DomainX/{train,test}/
+    {image,mask}/NNN.png` with the manifests: the JAX package's tree, the
+    same draws, names and lists.  The n-th file written takes
+    filter_types[n % len(filter_types)] (a PNG row filter, data/png.py);
+    masks of `palette_mask_domains` are palette images over MASK_PALETTE,
+    which decode to the same gray values.  The draws are sequential; the
+    files are encoded on a few threads (zlib and numpy release the GIL)."""
     base = os.path.join(root, "fundus")
     for dom in domains:
-        for split, n in [("train", per_domain_train), ("test", per_domain_test)]:
-            img_dir = os.path.join(base, dom, split, "image")
-            mask_dir = os.path.join(base, dom, split, "mask")
-            os.makedirs(img_dir, exist_ok=True)
-            os.makedirs(mask_dir, exist_ok=True)
-            lines_local, lines_global = [], []
-            for i in range(n):
-                img, mask = _fundus_pair(rng, size)
-                rel_img = f"{split}/image/{i:03d}.png"
-                rel_mask = f"{split}/mask/{i:03d}.png"
-                Image.fromarray(img).save(os.path.join(base, dom, rel_img))
-                Image.fromarray(mask).save(os.path.join(base, dom, rel_mask))
-                lines_local.append(f"{rel_img} {rel_mask}")
-                lines_global.append(f"{dom}/{rel_img} {dom}/{rel_mask}")
+        for split in ("train", "test"):
+            os.makedirs(os.path.join(base, dom, split, "image"), exist_ok=True)
+            os.makedirs(os.path.join(base, dom, split, "mask"), exist_ok=True)
+    lines: Dict[Tuple[str, str], List[str]] = {}
+    written = []
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        for dom, split, i, img, mask in fundus_tree_pairs(per_domain_train, per_domain_test, size, seed, domains):
+            rel_img, rel_mask = f"{split}/image/{i:03d}.png", f"{split}/mask/{i:03d}.png"
+            lines.setdefault((dom, split), []).append((rel_img, rel_mask))
+            kw = {}
+            if dom in palette_mask_domains:
+                mask, kw = np.searchsorted(MASK_PALETTE[:, 0], mask).astype(np.uint8), {"palette": MASK_PALETTE}
+            for rel, arr, extra in ((rel_img, img, {}), (rel_mask, mask, kw)):
+                ft = filter_types[len(written) % len(filter_types)]
+                written.append(pool.submit(png.write, os.path.join(base, dom, rel), arr, filter_type=ft, **extra))
+        for job in written:
+            job.result()  # raises what a write raised
+    for dom in domains:
+        for split in ("train", "test"):
+            pairs = lines.get((dom, split), [])
             with open(os.path.join(base, dom, f"{split}.list"), "w") as f:
-                f.write("\n".join(lines_local) + "\n")
+                f.write("\n".join(f"{a} {b}" for a, b in pairs) + "\n")
             with open(os.path.join(base, f"{dom}_{split}.list"), "w") as f:
-                f.write("\n".join(lines_global) + "\n")
+                f.write("\n".join(f"{dom}/{a} {dom}/{b}" for a, b in pairs) + "\n")
     return base
 
 

@@ -40,6 +40,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ramdsir_tpu_torch.models.norm import BatchNorm, DomainSpecificBatchNorm
+from ramdsir_tpu_torch.ops.upsample import Upsample2x
 
 Domain = Union[int, Sequence[int], np.ndarray]
 
@@ -56,7 +57,11 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """Bilinear x2, align_corners=False."""
+    """Bilinear x2, align_corners=False.  While torch's deterministic mode
+    is on (`fit` under cfg.deterministic), its backward is kernel K2
+    (`ops/upsample.py`); otherwise it is torch's own."""
+    if torch.are_deterministic_algorithms_enabled():
+        return Upsample2x.apply(x)
     return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
 
 

@@ -1,13 +1,15 @@
-"""ctypes bindings for the host post-processing and surface-distance
-library (`postproc.cpp`, the port's own copy of the JAX package's).
+"""ctypes bindings for the port's two host libraries: the post-processing
+and surface-distance library (`postproc.cpp`, the port's own copy of the
+JAX package's) and the PNG row unfilter (`png.cpp`, for `data/png.py`).
 
-The library is compiled with g++ at first use, not at import, into
-`ramdsir_tpu_torch/_build/`, keyed on a hash of the source and the flags;
+Each library is compiled with g++ at first use, not at import, into
+`ramdsir_tpu_torch/_build/`, keyed on a hash of its source and the flags;
 it is written under a private name and renamed, so processes building at
 once never load a half-written file.  There is no fallback: a failed build
-raises, and the eval path never takes scipy in its place.  The scipy
-versions (`ops.postprocess.*_plain`, `ops.metrics.surface_distances_plain`)
-are for the tests and the card's smoke run, which hold the library to them.
+raises, the eval path never takes scipy in its place, nor the PNG decoder
+its numpy loop.  The plain versions (`ops.postprocess.*_plain`,
+`ops.metrics.surface_distances_plain`, `data.png.unfilter_plain`) are for
+the tests and the card's smoke run, which hold the libraries to them.
 """
 from __future__ import annotations
 
@@ -23,20 +25,23 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "postproc.cpp")
+PNG_SOURCE = os.path.join(_HERE, "png.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_png_lib: Optional[ctypes.CDLL] = None
 
 
-def build_library() -> str:
-    """Compile postproc.cpp unless a library built from the same source and
-    flags exists; returns the library's path."""
-    with open(SOURCE, "rb") as f:
+def build_library(source: str = SOURCE) -> str:
+    """Compile `source` (postproc.cpp by default) unless a library built
+    from the same source and flags exists; returns the library's path."""
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join((CXX,) + CXX_FLAGS).encode()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"libpostproc_{digest}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    path = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -45,12 +50,12 @@ def build_library() -> str:
     try:
         try:
             proc = subprocess.run(
-                [CXX, *CXX_FLAGS, SOURCE, "-o", tmp], capture_output=True, text=True, timeout=300
+                [CXX, *CXX_FLAGS, source, "-o", tmp], capture_output=True, text=True, timeout=300
             )
         except OSError as e:
-            raise RuntimeError(f"cannot run {CXX} to build {SOURCE}: {e}") from e
+            raise RuntimeError(f"cannot run {CXX} to build {source}: {e}") from e
         if proc.returncode != 0:
-            raise RuntimeError(f"{CXX} failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"{CXX} failed on {source}:\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
@@ -75,6 +80,36 @@ def library() -> ctypes.CDLL:
             lib.surface_distances.restype = ctypes.c_int64
             _lib = lib
     return _lib
+
+
+def png_library() -> ctypes.CDLL:
+    """The loaded PNG unfilter library, built on first use."""
+    global _png_lib
+    with _lock:
+        if _png_lib is None:
+            lib = ctypes.CDLL(build_library(PNG_SOURCE))
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            lib.png_unfilter.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, u8p]
+            lib.png_unfilter.restype = ctypes.c_int64
+            _png_lib = lib
+    return _png_lib
+
+
+def png_unfilter(filtered: np.ndarray, height: int, rowbytes: int, bpp: int) -> np.ndarray:
+    """The (height, rowbytes) uint8 rows of a filtered PNG stream of
+    height * (1 + rowbytes) bytes, each row led by its filter type; bpp is
+    the filter's byte distance, 1..8.  An unknown filter type raises."""
+    src = np.ascontiguousarray(filtered, dtype=np.uint8).reshape(-1)
+    if src.size != height * (rowbytes + 1):
+        raise ValueError(f"png_unfilter: {src.size} bytes for {height} rows of {rowbytes} + 1")
+    if not 1 <= bpp <= 8:
+        raise ValueError(f"png_unfilter: bpp {bpp} is outside [1, 8]")
+    out = np.empty((height, rowbytes), np.uint8)
+    err = png_library().png_unfilter(_ptr(src, ctypes.c_uint8), height, rowbytes, bpp, _ptr(out, ctypes.c_uint8))
+    if err != 0:
+        row = -err - 1
+        raise ValueError(f"png_unfilter: row {row} has filter type {src[row * (rowbytes + 1)]}")
+    return out
 
 
 def _u8(a: np.ndarray) -> np.ndarray:

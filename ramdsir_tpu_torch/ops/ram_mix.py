@@ -4,7 +4,8 @@ PyTorch version.
 The kernel (`csrc/ram_mix.cu`) replaces the TPU kernel
 `ramdsir_tpu/ops/ram_pallas.py::_mix_kernel`.  It is built with nvcc into a
 shared library with a plain C interface at first use on the card, keyed on
-the source's hash, into `ramdsir_tpu_torch/_build/`, and bound with ctypes.
+the source's hash, into `ramdsir_tpu_torch/_build/` (`ops/cuda_build.py`),
+and bound with ctypes.
 
 `mix_spectrum` is the only entry point.  It takes the plain version for
 tensors on the CPU (the tests) and launches the kernel for CUDA tensors; a
@@ -28,22 +29,15 @@ path's compact delta blocks and an element-strided path for the rest;
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from typing import Optional, Tuple
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "ram_mix.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+from ramdsir_tpu_torch.ops import cuda_build
+from ramdsir_tpu_torch.ops.cuda_build import NVCC_FLAGS
+from ramdsir_tpu_torch.ops.cuda_build import nvcc as _nvcc  # noqa: F401 (tools/k1_study.py)
+
+SOURCE = cuda_build.source_path("ram_mix.cu")
 FLT_MIN = float(torch.finfo(torch.float32).tiny)
 
 PATHS = ("strided", "full_vec", "delta_flat")  # the codes of ram_mix_launch
@@ -52,42 +46,10 @@ launches_by_path = dict.fromkeys(PATHS, 0)
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME")
-    for cand in (
-        os.path.join(cuda_home, "bin", "nvcc") if cuda_home else None,
-        shutil.which("nvcc"),
-        "/usr/local/cuda/bin/nvcc",
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: K1 (csrc/ram_mix.cu) is compiled on the machine with the card")
-
-
 def build_library() -> str:
     """Compile csrc/ram_mix.cu unless a library built from the same source
     and flags exists; returns the library's path."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"libram_mix_{digest}.so")
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    # build under a private name and rename: a concurrent build never loads
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path
+    return cuda_build.build_library(SOURCE)
 
 
 def _library() -> ctypes.CDLL:

@@ -77,7 +77,10 @@ def load_any_checkpoint(path: str, models: Mapping[str, torch.nn.Module]) -> Non
 class BestKeeper:
     """The rolling best checkpoint `model_<score>.pth` (reference
     train.py:337-361): the first eval always saves, a tie rewrites the file
-    (PARITY.md #8), the previous best is deleted."""
+    (PARITY.md #8), the previous best is deleted.  A save_dir that already
+    holds a best, the port's `model_<score>.pth` or the JAX package's
+    weights-only `model_<score>.ckpt`, starts from the highest score; only
+    that file and the keeper's own are ever removed."""
 
     def __init__(self, save_dir: str):
         self.save_dir = save_dir
@@ -87,9 +90,9 @@ class BestKeeper:
         # adopt an existing best by numeric order (a lexicographic sort
         # would rank 9.50 above 12.00)
         scored = []
-        for p in glob.glob(os.path.join(save_dir, "model_*.pth")):
+        for p in glob.glob(os.path.join(save_dir, "model_*.pth")) + glob.glob(os.path.join(save_dir, "model_*.ckpt")):
             try:
-                scored.append((float(os.path.basename(p)[6:-4]), p))
+                scored.append((float(os.path.splitext(os.path.basename(p))[0][6:]), p))
             except ValueError:
                 pass
         if scored:

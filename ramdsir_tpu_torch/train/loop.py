@@ -16,9 +16,14 @@ global steps, the poly LR continues, and the epoch plan and the draws start
 afresh from the seed, as in the JAX package.  The run stops when the step
 reaches the schedule's total_iters; the JAX package's loop would run
 `epochs` more epochs and take the LR past zero, to NaN (ROADMAP.md §3).
+
+`cfg.deterministic` (--deterministic) runs the whole of `fit` under
+`deterministic_mode`: on the card two runs from one seed then give the same
+parameters, statistics, Adam moments and losses bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -64,6 +69,37 @@ def save_run_config(save_dir: str, cfg: TrainConfig) -> None:
             },
             f, indent=2, default=str,
         )
+
+
+CUBLAS_WORKSPACE_CONFIG = ":4096:8"  # a deterministic cuBLAS workspace, as torch requires
+
+
+@contextlib.contextmanager
+def deterministic_mode(on: bool):
+    """Bit-repeatable device steps for the duration (--deterministic, as
+    the reference's train.py:608-614 and more): cuDNN deterministic and
+    not benchmarking, `torch.use_deterministic_algorithms(True)` (so the
+    upsample's backward is kernel K2, `models/unet.upsample2x`, and any op
+    with only an atomics path raises instead of running), and, unless the
+    environment sets it, CUBLAS_WORKSPACE_CONFIG, without which torch
+    refuses cuBLAS products in this mode.  Every setting is restored on
+    exit, so runs in one process do not inherit each other's mode."""
+    if not on:
+        yield
+        return
+    cudnn = torch.backends.cudnn
+    saved = (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+             cudnn.benchmark, cudnn.deterministic, os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE_CONFIG)
+    cudnn.benchmark, cudnn.deterministic = False, True
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        cudnn.benchmark, cudnn.deterministic = saved[2], saved[3]
+        if saved[4] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
 
 
 Pipeline = Union[DeviceFundusPipeline, DeviceProstatePipeline]
@@ -116,11 +152,13 @@ def fit(
     if not cfg.device_data:
         raise NotImplementedError("device_data=False is not ported yet (ROADMAP.md: host loaders)")
     device = resolve_device(cfg.device)
-    if cfg.deterministic:
-        # reference train.py:608-614
-        torch.backends.cudnn.benchmark = False
-        torch.backends.cudnn.deterministic = True
-        np.random.seed(cfg.seed)
+    with deterministic_mode(cfg.deterministic):
+        if cfg.deterministic:
+            np.random.seed(cfg.seed)  # reference train.py:608-614
+        return _fit(cfg, device, eval_every, max_steps, pipeline, testset)
+
+
+def _fit(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset) -> Dict:
     save_dir = cfg.save_path
     save_run_config(save_dir, cfg)
     if pipeline is None:

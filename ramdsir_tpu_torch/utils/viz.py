@@ -1,8 +1,8 @@
 """Contour overlays of eval predictions (port of `save_per_img` and what it
 needs from `ramdsir_tpu/utils/viz.py:31-142`, and `untransform_prostate`).
 
-Used by the eval CLIs' --save_result.  PIL is imported inside
-`save_per_img`.
+Used by the eval CLIs' --save_result; the overlays are written by the
+port's own PNG encoder (`data/png.py`).
 """
 from __future__ import annotations
 
@@ -92,16 +92,14 @@ def save_per_img(
     name: str,
     pred: Optional[np.ndarray] = None,
     gt: Optional[np.ndarray] = None,
-    ext: str = "png",
 ) -> str:
-    """Write the overlay as `<output_dir>/<image stem>.<ext>`; returns the path."""
-    from PIL import Image
+    """Write the overlay as `<output_dir>/<image stem>.png`; returns the path."""
+    from ramdsir_tpu_torch.data import png
 
     os.makedirs(output_dir, exist_ok=True)
     base = os.path.splitext(os.path.basename(str(name).split(" ")[0]))[0]
-    path = os.path.join(output_dir, f"{base}.{ext}")
-    Image.fromarray(overlay_contours(img, pred, gt)).save(path)
-    return path
+    path = os.path.join(output_dir, f"{base}.png")
+    return png.write(path, overlay_contours(img, pred, gt))
 
 
 def untransform_prostate(img: np.ndarray) -> np.ndarray:

@@ -280,6 +280,56 @@ def test_cli_bf16_resume_drive(trained_run, tmp_path, capsys):
     assert cfg["compute_dtype"] == "bfloat16" and cfg["checkpoint_resume"] == str(run / "final_model.ckpt")
 
 
+NO_PIL_DRIVE = r"""
+import os, sys
+sys.modules["PIL"] = None  # the card has neither: any import of them raises
+sys.modules["cv2"] = None
+from ramdsir_tpu_torch.cli.test_fundus_slice import main as eval_main
+from ramdsir_tpu_torch.cli.train import main as train_main
+from ramdsir_tpu_torch.data.synthetic import make_fundus_tree
+
+root = sys.argv[1]
+make_fundus_tree(os.path.join(root, "data"), per_domain_train=8, per_domain_test=3, size=40,
+                 filter_types=(0, 1, 2, 3, 4, "adaptive"), palette_mask_domains=("Domain1", "Domain2"))
+train_main(["--device", "cpu", "--data_root", os.path.join(root, "data"), "--dataset", "fundus",
+            "--domain_idxs", "1,2,3", "--test_domain_idx", "0", "--ram", "--rec", "--is_out_domain",
+            "--consistency", "--consistency_type", "kd", "--save_path", os.path.join(root, "run"),
+            "--image_size", "32", "--epochs", "1", "--max_steps", "2", "--test_batch_size", "2",
+            "--deterministic"])
+eval_main(["--device", "cpu", "--model_file", os.path.join(root, "run", "final_model.pth"),
+           "--data_dir", os.path.join(root, "data"), "--datasetTest", "0", "--batch_size", "2",
+           "--image_size", "32", "--test_prediction_save_path", os.path.join(root, "eval"), "--save_result"])
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "cv2") and sys.modules[m] is not None))
+"""
+
+
+def test_fundus_drive_without_pil_or_cv2(tmp_path):
+    """With PIL and cv2 blocked, as on the card: make_fundus_tree writes the
+    tree (every row filter, palette masks), cli.train trains from it under
+    --deterministic and evaluates, cli.test_fundus_slice scores it with
+    --save_result, and every overlay is a PNG that PIL and the port read
+    back equal."""
+    from PIL import Image
+
+    from ramdsir_tpu_torch.data import png
+
+    proc = subprocess.run([sys.executable, "-c", NO_PIL_DRIVE, str(tmp_path)], capture_output=True, text=True,
+                          env=_env(), timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert re.search(r"epoch 0: eval avg dice [0-9.]+ \| best [0-9.]+", proc.stdout), proc.stdout
+    assert len(_six_metrics(proc.stdout)) == 6, proc.stdout
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+    overlays = sorted(os.listdir(tmp_path / "eval" / "test0"))
+    assert overlays == ["000.png", "001.png", "002.png"]
+    for name in overlays:
+        path = str(tmp_path / "eval" / "test0" / name)
+        ours = png.decode(path)
+        assert ours.mode == "RGB" and ours.array.shape == (40, 40, 3)
+        np.testing.assert_array_equal(np.asarray(Image.open(path)), ours.array)
+    cfg = json.loads((tmp_path / "run" / "run_config.json").read_text())
+    assert cfg["config"]["deterministic"] is True
+
+
 def test_port_imports_no_jax_and_no_reference_package():
     """Import every module of ramdsir_tpu_torch in a fresh interpreter (the
     test process has JAX loaded already) and list what came in."""
@@ -290,7 +340,7 @@ names = [m.name for m in pkgutil.walk_packages(ramdsir_tpu_torch.__path__, "ramd
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "ramdsir_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "ramdsir_tpu", "PIL", "cv2"))
 print(names)
 print(bad)
 """
@@ -300,7 +350,8 @@ print(bad)
     assert len(names) >= 30, names
     for new in ("native", "ops.metrics", "ops.postprocess", "ops.resize", "data.loaders", "train.evaluate",
                 "train.checkpoint", "utils.viz", "cli.test_fundus_slice", "data.nifti", "data.prostate",
-                "cli.test_prostate_volume", "utils.msgpack"):
+                "cli.test_prostate_volume", "utils.msgpack", "data.png", "ops.image", "ops.upsample",
+                "ops.cuda_build"):
         assert f"ramdsir_tpu_torch.{new}" in names, new
     assert bad == [], bad
 
@@ -353,6 +404,11 @@ def test_failing_compiler_raises(monkeypatch):
         postprocess.postprocessing(np.stack([m, m]).astype(np.float32), threshold=0.75)
     with pytest.raises(RuntimeError, match="failed on"):
         metrics.hd95(m, m)
+    from ramdsir_tpu_torch.data import png
+
+    monkeypatch.setattr(native, "_png_lib", None)
+    with pytest.raises(RuntimeError, match="failed on"):
+        png.decode(png.encode(np.zeros((2, 3), np.uint8)))
     monkeypatch.setattr(native, "CXX", "no-such-compiler-here")
     with pytest.raises(RuntimeError, match="cannot run"):
         postprocess.connectivity_region_analysis(m)

@@ -1,6 +1,7 @@
-"""K1 on the card against its plain version, the eval path on the card
-against the CPU, a bfloat16 step through K1 and a `.ckpt` round trip of a
-card state (marker `cuda`; skipped without a card).
+"""K1 and K2 on the card against their plain versions, the eval path on
+the card against the CPU, a bfloat16 step through K1, a `.ckpt` round trip
+of a card state, and deterministic steps that repeat bit for bit (marker
+`cuda`; skipped without a card).
 
 These tests import neither JAX nor the JAX package, so they also run where
 JAX is not installed; the root conftest.py imports JAX, so run them there
@@ -19,7 +20,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def gen():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 is a CUDA kernel with no CPU build")
+        pytest.skip("needs a CUDA card: K1 and K2 are CUDA kernels with no CPU build")
     return torch.Generator(device="cuda").manual_seed(0)
 
 
@@ -273,3 +274,90 @@ def test_ckpt_round_trip_of_card_state_is_bit_equal(gen, tmp_path):
     for p, q in zip(pa, pb):
         sa, sb = a.optimizer.state[p], b.optimizer.state[q]
         assert sa.keys() == sb.keys() and all(torch.equal(sa[k].cpu(), sb[k].cpu()) for k in sa)
+
+
+# --- K2, the deterministic upsample backward, and a deterministic step --------------
+
+# (N, C, H, W) of the input: edges, odd sizes, and two U-Net stages of the
+# fundus main path (seg decoder over the dual batch of 32: 256 ch at 16^2,
+# 32 ch at 128^2)
+K2_SHAPES = [(2, 3, 1, 1), (2, 3, 2, 1), (1, 4, 5, 7), (3, 5, 33, 17), (32, 256, 16, 16), (32, 32, 128, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", K2_SHAPES, ids=[f"{s[0]}x{s[1]}x{s[2]}x{s[3]}" for s in K2_SHAPES])
+def test_k2_matches_plain(gen, shape, dtype):
+    """K2 against its plain version on the card, bit for bit; one launch."""
+    from ramdsir_tpu_torch.ops import upsample
+
+    n, c, h, w = shape
+    g = torch.randn((n, c, 2 * h, 2 * w), generator=gen, device="cuda").to(dtype)
+    before = upsample.launches
+    got = upsample.upsample2x_backward(g)
+    want = upsample.upsample2x_backward_plain(g)
+    torch.cuda.synchronize()
+    assert upsample.launches == before + 1
+    assert got.dtype == dtype and got.shape == (n, c, h, w)
+    assert torch.equal(got, want)
+
+
+def test_k2_refuses_what_it_cannot_take(gen):
+    from ramdsir_tpu_torch.ops import upsample
+
+    g = torch.randn((2, 4, 8, 6), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="NCHW contiguous"):
+        upsample.upsample2x_backward(g.transpose(2, 3))
+    with pytest.raises(ValueError, match="NCHW contiguous"):
+        upsample.upsample2x_backward(g.contiguous(memory_format=torch.channels_last))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        upsample.upsample2x_backward(g.double())
+
+
+def _deterministic_steps(cfg, steps=2):
+    """`steps` steps of a fresh state and a fresh pipeline from one seed
+    under deterministic_mode; the state, the metrics and K2's launches."""
+    from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
+    from ramdsir_tpu_torch.data.synthetic import fundus_arrays
+    from ramdsir_tpu_torch.ops import upsample
+    from ramdsir_tpu_torch.train.loop import deterministic_mode
+    from ramdsir_tpu_torch.train.state import init_state
+    from ramdsir_tpu_torch.train.steps import make_train_step
+
+    pipe = DeviceFundusPipeline.from_arrays(
+        fundus_arrays(per_domain_train=8, size=64), cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx,
+        is_out_domain=True, seed=0, precompute_donor_amp=cfg.ram_precompute_donor_amp, device="cuda",
+    )
+    state = init_state(cfg, torch.Generator().manual_seed(0), "cuda")
+    step = make_train_step(cfg, total_iters=10, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data)
+    gen, rows, metrics = torch.Generator().manual_seed(1), iter(pipe), []
+    before = upsample.launches
+    with deterministic_mode(True):
+        for _ in range(steps):
+            metrics.append({k: v.clone() for k, v in step(state, next(rows), gen).items()})
+    torch.cuda.synchronize()
+    return state, metrics, upsample.launches - before
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_deterministic_steps_repeat_bit_for_bit(gen, compute_dtype):
+    """Two runs of two fundus steps from one seed under deterministic_mode:
+    parameters, BN statistics, Adam moments and losses bit-equal; K2
+    launched 8 times a step; the mode is off afterwards."""
+    from ramdsir_tpu_torch.config import TrainConfig
+
+    cfg = TrainConfig(dataset="fundus", domain_idxs=(1, 2, 3), test_domain_idx=0, ram=True, rec=True,
+                      is_out_domain=True, consistency=True, consistency_type="kd", image_size=64,
+                      compute_dtype=compute_dtype, device="cuda").resolve()
+    (a, ma, ka), (b, mb, kb) = _deterministic_steps(cfg), _deterministic_steps(cfg)
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert ka == kb == 2 * 8
+    for x, y in zip(ma, mb):
+        assert x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
+    for name, m in a.models.items():
+        for k, v in m.state_dict().items():
+            assert torch.equal(v, b.models[name].state_dict()[k]), f"{name}.{k}"
+    pa = [p for m in a.models.values() for p in m.parameters()]
+    pb = [p for m in b.models.values() for p in m.parameters()]
+    for p, q in zip(pa, pb):
+        sa, sb = a.optimizer.state[p], b.optimizer.state[q]
+        assert sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
