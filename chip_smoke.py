@@ -90,11 +90,14 @@ result line):
               one prostate step with K1 and with the plain mix (as
               step_parity)
   prostate_eval_parity
-              that run's weights and one volume on the card and on the CPU,
-              both BN modes: probabilities within 1e-4, labels differing at
-              most at 1e-4 of the voxels, Dice within 1e-3; the host
-              library's largest component and 3-D surface distances
-              bit-equal to scipy on the card's predictions
+              the weights of the prostate float32 run under --deterministic
+              (phase deterministic; one set a software stack) and one volume
+              on the card and on the CPU, both BN modes: probabilities within
+              1e-4 (and by class), labels differing at most at 1e-4 of the
+              voxels, Dice within 1e-3; the prostate run's own weights the
+              same way, reported only; the host library's largest component
+              and 3-D surface distances bit-equal to scipy on the card's
+              predictions
   png_tree    the fundus path from a PNG tree the port writes and reads
               without PIL: 800^2 sources, 4 domains x 32 train pairs and 50
               test pairs of target 0, every row filter and palette masks;
@@ -113,9 +116,25 @@ result line):
   k2          K2 against its plain version (bit-equal) and torch's atomics
               backward at every shape and dtype of those steps, with `ms`,
               `kernel_ms`, plain and library times and the bytes bound
+  variants    the single-card training variants at the reference widths,
+              each a `fit` of 8 steps (13 for the trace) with its eval, K1
+              held to its plain version at every call and launched once a
+              step: prostate --num_classes 3 (the volume eval at C = 3),
+              fundus --norm gn and --norm in (each with a step on the card
+              against the same step on the CPU, TF32 off, within
+              step_parity's bounds; the softmax head too), --norm gn in
+              bfloat16 (the activations after the first GroupNorm are
+              float32, as in JAX), fused_dual=False + fused_dsbn=False (a
+              step against the fused one from the same state), --remat for
+              fundus and prostate (without and with in turns, then both
+              under --deterministic: bit-equal; median step and peak memory
+              each way), --global_batch 48 (LR x 3; img/s beside the
+              default run's) and --trace_dir (steps 2-12, a Chrome trace
+              that names K1's kernel)
 Then the card line from nvidia-smi, the kernels line (K1 per mode and at
-the prostate shape; K2 summed over a deterministic step's 8 launches for
-each run, and at the largest shape), and the result line.
+the prostate shape, the variant runs' launches added to the band-delta
+entries by run; K2 summed over a deterministic step's 8 launches for each
+run, and at the largest shape), and the result line.
 Run artefacts go to chiprun_out/chip_smoke/ (prostate: chip_smoke/prostate/);
 the .pth and .ckpt files and the NIfTI volumes are deleted at exit.
 """
@@ -515,12 +534,12 @@ def phase_ram_oracle(torch, tram, np):
 # --- the main path ------------------------------------------------------------
 
 
-def main_path_config(TrainConfig, name, run_dir):
+def main_path_config(TrainConfig, name, run_dir, **variant):
     extra = {"ram_use_pallas": {"ram_use_pallas": True}, "no_ram_banded_dft": {"ram_banded_dft": False}, "bf16": BF16}
     return TrainConfig(
         dataset="fundus", domain_idxs=(1, 2, 3), test_domain_idx=0, ram=True, rec=True,
         is_out_domain=True, consistency=True, consistency_type="kd", image_size=S,
-        save_path=run_dir, device="cuda", **extra.get(name, {}),
+        save_path=run_dir, device="cuda", **extra.get(name, {}), **variant,
     ).resolve()
 
 
@@ -907,12 +926,12 @@ def phase_eval_parity(torch, np, testset, n=16, batch=7):
 # --- the prostate path ------------------------------------------------------------
 
 
-def prostate_config(TrainConfig, run_dir, data_root, bf16=False):
+def prostate_config(TrainConfig, run_dir, data_root, bf16=False, **variant):
     """The reference prostate configuration (bench.py:72-74, :193-210)."""
     return TrainConfig(
         dataset="prostate", domain_idxs=(0, 1, 2, 3, 4), test_domain_idx=5, ram=True, rec=True,
         consistency=True, consistency_type="kd", image_size=PS, save_path=run_dir, data_root=data_root,
-        device=DEVICE, **(BF16 if bf16 else {}),
+        device=DEVICE, **(BF16 if bf16 else {}), **variant,
     ).resolve()
 
 
@@ -1047,23 +1066,18 @@ def phase_prostate_step_parity(torch, np, ram_mix, prostate):
         raise SystemExit(f"prostate step parity: kernel and plain steps disagree: {entry}")
 
 
-def phase_prostate_eval_parity(torch, np, volume):
-    """The prostate run's final weights and one volume on the card and on the
-    CPU (TF32 off, deterministic cuDNN) in both BN modes, through
-    eval_prostate_volumes; then the host library against scipy on the card's
-    predictions."""
+def prostate_eval_parity_on(torch, np, path, volume):
+    """The weights at `path` and one volume on the card and on the CPU (TF32
+    off, deterministic cuDNN) in both BN modes, through
+    eval_prostate_volumes: each mode's numbers and the card's labels."""
     from ramdsir_tpu_torch.config import TrainConfig
-    from ramdsir_tpu_torch.ops import metrics, postprocess
+    from ramdsir_tpu_torch.ops import postprocess
     from ramdsir_tpu_torch.train import evaluate
     from ramdsir_tpu_torch.train.checkpoint import load_torch_checkpoint
     from ramdsir_tpu_torch.train.state import build_models
     from ramdsir_tpu_torch.train.steps import make_predict_fn
 
-    set_exact_float32(torch)
-    path = os.path.join(PROSTATE_OUT, "run", "final_model.pth")
-    entry = dict(volume=volume[0], depth=volume[1].shape[0], batch=PROSTATE_TEST_BATCH, prob_tol=1e-4,
-                 label_share_tol=1e-4, dice_tol=1e-3)
-    card_labels = None
+    entry, card_labels = dict(weights=os.path.relpath(path, REPO)), None
     for bn_adapt in (False, True):
         got = {}
         for dev in (DEVICE, "cpu"):
@@ -1087,14 +1101,38 @@ def phase_prostate_eval_parity(torch, np, volume):
                 res = evaluate.eval_prostate_volumes(recording, [volume], 5, batch_size=PROSTATE_TEST_BATCH)
             got[dev] = (torch.stack(probs), labels[0], res.dice)
         (pc, lc, dc), (pp, lp, dp) = got[DEVICE], got["cpu"]
-        prob_err = float((pc - pp).abs().max())
-        label_share = float(np.mean(lc != lp))
-        tag = "bn_adapt" if bn_adapt else "running_stats"
-        entry[tag] = dict(prob_max_abs=prob_err, label_share_differing=label_share, dice_abs=abs(dc - dp),
-                          dice=dc, batches=len(pc), foreground_voxels=int(lc.sum()))
-        if prob_err > 1e-4 or label_share > 1e-4 or abs(dc - dp) > 1e-3:
-            raise SystemExit(f"prostate_eval_parity {tag}: {entry[tag]}")
+        diff = (pc - pp).abs()  # (batches, batch, class, H, W)
+        worst = diff.amax(dim=(0, 1, 3, 4))
+        entry["bn_adapt" if bn_adapt else "running_stats"] = dict(
+            prob_max_abs=float(diff.max()), prob_max_abs_by_class=worst.tolist(),
+            label_share_differing=float(np.mean(lc != lp)), dice_abs=abs(dc - dp), dice=dc, batches=len(pc),
+            foreground_voxels=int(lc.sum()))
         card_labels = lc
+    return entry, card_labels
+
+
+def phase_prostate_eval_parity(torch, np, volume):
+    """Card against CPU eval of one volume, held on the weights of the
+    prostate float32 run under --deterministic (phase deterministic), which
+    are one set a software stack: probabilities within 1e-4, labels
+    differing at most at 1e-4 of the voxels, Dice within 1e-3, both BN
+    modes.  The prostate run's own weights (non-repeatable training) go
+    through the same comparison, reported only.  Then the host library's
+    largest component and 3-D surface distances against scipy on the
+    card's labels."""
+    from ramdsir_tpu_torch.ops import metrics, postprocess
+
+    with exact_float32(torch):
+        entry, card_labels = prostate_eval_parity_on(
+            torch, np, os.path.join(OUT, "deterministic", "prostate", "deterministic", "final_model.pth"), volume)
+        reported, _ = prostate_eval_parity_on(torch, np, os.path.join(PROSTATE_OUT, "run", "final_model.pth"), volume)
+    entry.update(volume=volume[0], depth=volume[1].shape[0], batch=PROSTATE_TEST_BATCH, prob_tol=1e-4,
+                 label_share_tol=1e-4, dice_tol=1e-3, prostate_run_weights_reported_only=reported)
+    for tag in ("running_stats", "bn_adapt"):
+        e = entry[tag]
+        if e["prob_max_abs"] > 1e-4 or e["label_share_differing"] > 1e-4 or e["dice_abs"] > 1e-3:
+            emit("prostate_eval_parity", **entry)
+            raise SystemExit(f"prostate_eval_parity {tag}: {e}")
     # the host library against scipy on the card's labels of the volume
     mask = volume[2] != 0
     ours = postprocess.connectivity_region_analysis(card_labels)
@@ -1528,6 +1566,253 @@ def phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, prostate_
     return runs, shapes
 
 
+# --- the single-card training variants ------------------------------------------------
+
+
+VARIANT_STEPS, TRACE_STEPS, GLOBAL_BATCH = 8, 13, 48
+REMAT_RUNS = ("plain", "remat", "remat_deterministic", "plain_deterministic")  # in turns, one call
+VARIANTS_OUT = os.path.join(OUT, "variants")
+
+
+@contextlib.contextmanager
+def exact_float32(torch):
+    """set_exact_float32 for the duration; the settings before it come back."""
+    b = torch.backends
+    saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.deterministic, b.cudnn.benchmark)
+    set_exact_float32(torch)
+    try:
+        yield
+    finally:
+        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.deterministic, b.cudnn.benchmark = saved
+
+
+@contextlib.contextmanager
+def k1_held_to_plain(ram_mix, errs, calls):
+    """K1's first `calls` calls of the run also run the plain version on
+    copies of their inputs, and their largest difference (a device tensor,
+    read after the run) goes to `errs`.  With `calls` the step timer's
+    warm-up steps the timed steps carry no check.  The plain version
+    launches nothing, so K1's counts stay the run's own."""
+    kernel = ram_mix.mix_spectrum
+    left = [calls]
+
+    def checked(re, im, amp_t, ratio, band, *, full, delta=False):
+        if not left[0]:
+            return kernel(re, im, amp_t, ratio, band, full=full, delta=delta)
+        left[0] -= 1
+        want = ram_mix.mix_spectrum_plain(re.clone(), im.clone(), amp_t, ratio, band, full=full, delta=delta)
+        got = kernel(re, im, amp_t, ratio, band, full=full, delta=delta)
+        errs.extend((g - w).abs().max() for g, w in zip(got, want))
+        return got
+
+    with mock.patch.object(ram_mix, "mix_spectrum", checked):
+        yield
+
+
+def variant_fit(torch, np, ram_mix, name, cfg, pipe, steps, testset=None):
+    """`fit` for `steps` steps (one eval at the end of each epoch and at the
+    last step) with K1 held to its plain version in the untimed warm-up
+    steps: the run's entry.  Losses finite every step, K1 launches ==
+    steps, bit-equal."""
+    from ramdsir_tpu_torch.train.loop import fit
+    from ramdsir_tpu_torch.utils.profiler import StepTimer
+
+    shutil.rmtree(cfg.save_path, ignore_errors=True)
+    sync(torch)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ram_mix.launches = 0
+    errs = []
+    t0 = time.perf_counter()
+    checked = StepTimer().warmup
+    with k1_held_to_plain(ram_mix, errs, checked):
+        summary = fit(cfg, max_steps=steps, pipeline=pipe, testset=testset)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    rows = [json.loads(line) for line in open(os.path.join(cfg.save_path, "log", "metrics.jsonl"))]
+    losses = [{k: v for k, v in r.items() if k.startswith("loss/")} for r in rows if "loss/loss" in r]
+    finite = len(losses) == steps and all(np.all(np.isfinite(list(r.values()))) for r in losses)
+    evals = [r["eval/avg_dice"] for r in rows if "eval/avg_dice" in r]
+    entry = dict(
+        run=name, steps=summary["steps"], k1_launches=ram_mix.launches,
+        k1_max_abs_err=max(float(e) for e in errs) if errs else None, k1_checked_steps=checked,
+        losses_finite=finite,
+        first_loss=losses[0]["loss/loss"], last_loss=losses[-1]["loss/loss"],
+        median_step_ms=summary["median_step_ms"], images_per_sec=summary["images_per_sec"],
+        peak_memory_bytes=torch.cuda.max_memory_allocated() if DEVICE == "cuda" else "not measured",
+        wall_s=wall, batch=sum(cfg.batch_size_list), lr=cfg.lr, norm=cfg.norm, num_classes=cfg.num_classes,
+        compute_dtype=cfg.compute_dtype, remat=cfg.remat, deterministic=cfg.deterministic, evals=len(evals),
+        last_eval_avg_dice=evals[-1] if evals else None,
+    )
+    if cfg.dataset == "prostate":
+        entry.update(dice=summary["dice"], eval_volumes=summary["eval_timing"]["volumes"])
+    else:
+        entry.update(cup_dice=summary["cup_dice"], disc_dice=summary["disc_dice"])
+    if not finite or summary["steps"] != steps or entry["k1_launches"] != steps or entry["k1_max_abs_err"] != 0.0:
+        emit("variants", **entry)
+        raise SystemExit(f"variants {name}: {summary['steps']} steps, K1 launches {entry['k1_launches']} "
+                         f"(max err {entry['k1_max_abs_err']}), losses finite {finite}")
+    return entry, summary, losses
+
+
+def card_cpu_step_parity(torch, ram_mix, cfg, pipe, crop):
+    """One step from the seed's state on the card and on the CPU, from the
+    same row, data and draws (TF32 off, deterministic cuDNN): step_parity's
+    numbers and whether they are within its bounds."""
+    import dataclasses
+    import types
+
+    from ramdsir_tpu_torch.train.steps import sample_step_draws
+
+    row = next(iter(pipe))
+    draws = sample_step_draws(torch.Generator().manual_seed(5), sum(cfg.batch_size_list), torch.device(DEVICE),
+                              crop=crop)
+    on_cpu = types.SimpleNamespace(device_data={k: v.cpu() for k, v in pipe.device_data.items()})
+    with exact_float32(torch):
+        card = step_from_seed(torch, ram_mix, cfg, pipe, row, draws, device=DEVICE)
+        t0 = time.perf_counter()
+        cpu = step_from_seed(torch, ram_mix, dataclasses.replace(cfg, device="cpu"), on_cpu, row,
+                             {k: v.cpu() for k, v in draws.items()}, device="cpu")
+        cpu_s = time.perf_counter() - t0
+    loss_rel, param_err, stat_err, stats_ok = step_distance(
+        torch, (card[0], {k: v.cpu() for k, v in card[1].items()}), cpu[:2])
+    parity = dict(loss_max_rel=loss_rel, loss_tol=1e-5, params_max_abs=param_err, params_tol=2.5 * cfg.lr,
+                  running_stats_max_abs=stat_err, stats_tol="rtol 1e-4, atol 1e-5", k1_launches=card[2],
+                  cpu_step_s=cpu_s)
+    ok = loss_rel <= 1e-5 and param_err <= 2.5 * cfg.lr and stats_ok and card[2] == 1
+    return parity, ok
+
+
+def phase_variants(torch, np, ram_mix, arrays, testset, prostate, prostate_root, default_run):
+    """Every single-card training variant at full width, each a `fit` of a
+    few steps with its eval: prostate --num_classes 3 (the volume eval at
+    C = 3), fundus --norm gn / in (and gn in bfloat16), --remat (fundus
+    and prostate, without and with in turns, then both under
+    --deterministic), --global_batch 48 and --trace_dir.  K1 is launched
+    once a step and held to its plain version in each run's untimed
+    warm-up steps; the step parities hold card against CPU within
+    step_parity's bounds.  The timed steps run as a user's do, so each
+    run's median step compares with fundus_remat:plain and
+    prostate_remat:plain, the BN runs of this phase."""
+    import dataclasses
+
+    from ramdsir_tpu_torch.config import TrainConfig
+    from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline, DeviceProstatePipeline
+    from ramdsir_tpu_torch.train.checkpoint import read_checkpoint
+    from ramdsir_tpu_torch.train.state import build_models
+
+    def fundus_pipe(cfg):
+        return DeviceFundusPipeline.from_arrays(
+            arrays, cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx, is_out_domain=True,
+            seed=cfg.seed, precompute_donor_amp=cfg.ram_precompute_donor_amp, device=DEVICE)
+
+    def prostate_pipe(cfg):
+        return DeviceProstatePipeline.from_arrays(
+            prostate, cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx, seed=cfg.seed, device=DEVICE)
+
+    def fundus_cfg(name, **variant):
+        cfg = main_path_config(TrainConfig, "default", os.path.join(VARIANTS_OUT, name), **variant)
+        return dataclasses.replace(cfg, device=DEVICE)
+
+    def prostate_cfg(name, **variant):
+        return prostate_config(TrainConfig, os.path.join(VARIANTS_OUT, name), prostate_root, **variant)
+
+    t_phase = time.perf_counter()
+    out = {}
+    launches = {"fundus": {}, "prostate": {}}
+
+    def record(entry, dataset, **extra):
+        entry.update(extra)
+        emit("variants", **entry)
+        launches[dataset][entry["run"]] = entry["k1_launches"]
+        out[entry["run"]] = entry
+
+    # the softmax head, GN and IN, each with its card <-> CPU step
+    for name, dataset, variant in (("prostate_softmax3", "prostate", dict(num_classes=3)),
+                                   ("fundus_gn", "fundus", dict(norm="gn")),
+                                   ("fundus_in", "fundus", dict(norm="in"))):
+        cfg = (prostate_cfg if dataset == "prostate" else fundus_cfg)(name, **variant)
+        pipe = (prostate_pipe if dataset == "prostate" else fundus_pipe)(cfg)
+        entry, summary, _ = variant_fit(torch, np, ram_mix, name, cfg, pipe, VARIANT_STEPS,
+                                        None if dataset == "prostate" else testset)
+        parity, ok = card_cpu_step_parity(torch, ram_mix, cfg, pipe, crop=dataset == "fundus")
+        if dataset == "prostate":
+            head = torch.load(summary["final_checkpoint"], map_location="cpu")["seg_decoder_state_dict"]["out1.weight"]
+            entry.update(head_classes=int(head.shape[0]), eval_volumes=summary["eval_timing"]["volumes"])
+            ok = ok and head.shape[0] == 3 and summary["eval_timing"]["volumes"] == PROSTATE_VOLUMES
+        record(entry, dataset, step_parity_card_vs_cpu=parity)
+        if not ok:
+            raise SystemExit(f"variants {name}: {parity}")
+
+    # GN in bfloat16: the activations after the first GroupNorm are float32, as in JAX
+    cfg = fundus_cfg("fundus_gn_bf16", norm="gn", **BF16)
+    entry, _, _ = variant_fit(torch, np, ram_mix, "fundus_gn_bf16", cfg, fundus_pipe(cfg), VARIANT_STEPS, testset)
+    enc = build_models(cfg)["encoder"].to(DEVICE).train()
+    seen = []
+    enc.convd1.bn1.register_forward_hook(lambda m, a, o: seen.append(str(o.dtype).split(".")[-1]))
+    with torch.no_grad():
+        feats = enc(torch.zeros((2, C, S, S), device=DEVICE, dtype=torch.bfloat16))
+    record(entry, "fundus", dtype_after_first_gn=seen[0], bottleneck_dtype=str(feats[-1].dtype).split(".")[-1])
+    if seen[0] != "float32":
+        raise SystemExit(f"variants fundus_gn_bf16: {seen[0]} after the first GroupNorm, expected float32")
+
+    # --remat, without and with in turns, then both under --deterministic (bit-equal)
+    for dataset in ("fundus", "prostate"):
+        name = f"{dataset}_remat"
+        runs, states = {}, {}
+        for rep in REMAT_RUNS:
+            variant = dict(remat=rep.startswith("remat"), deterministic=rep.endswith("deterministic"))
+            cfg = (prostate_cfg if dataset == "prostate" else fundus_cfg)(f"{name}/{rep}", **variant)
+            pipe = (prostate_pipe if dataset == "prostate" else fundus_pipe)(cfg)
+            entry, summary, losses = variant_fit(torch, np, ram_mix, f"{name}:{rep}", cfg, pipe, VARIANT_STEPS,
+                                                 None if dataset == "prostate" else testset)
+            runs[rep] = entry
+            states[rep] = (read_checkpoint(summary["resume_checkpoint"])["state"], losses)
+            launches[dataset][f"{name}:{rep}"] = entry["k1_launches"]
+        (sa, la), (sb, lb) = states["remat_deterministic"], states["plain_deterministic"]
+        bit_equal = _same_tree(np, sa, sb) and la == lb
+        med = {rep: runs[rep]["median_step_ms"] for rep in REMAT_RUNS}
+        peak = {rep: runs[rep]["peak_memory_bytes"] for rep in REMAT_RUNS}
+        entry = dict(run=name, steps=VARIANT_STEPS, median_step_ms=med, peak_memory_bytes=peak,
+                     images_per_sec={rep: runs[rep]["images_per_sec"] for rep in REMAT_RUNS},
+                     remat_step_cost_share=med["remat"] / med["plain"] - 1.0,
+                     remat_peak_memory_share=peak["remat"] / peak["plain"] if DEVICE == "cuda" else "not measured",
+                     deterministic_bit_equal=bit_equal, k1_launches={r: runs[r]["k1_launches"] for r in REMAT_RUNS},
+                     k1_max_abs_err=max(runs[r]["k1_max_abs_err"] for r in REMAT_RUNS),
+                     losses={r: runs[r]["last_loss"] for r in REMAT_RUNS})
+        emit("variants", **entry)
+        out[name] = entry
+        if not bit_equal:
+            raise SystemExit(f"variants {name}: --remat and no remat under --deterministic are not bit-equal")
+
+    # --global_batch 48: 16 a domain, the LR x 3
+    cfg = fundus_cfg("fundus_global_batch", global_batch=GLOBAL_BATCH)
+    entry, _, _ = variant_fit(torch, np, ram_mix, "fundus_global_batch", cfg, fundus_pipe(cfg), VARIANT_STEPS, testset)
+    record(entry, "fundus", batch_size_list=cfg.batch_size_list, default_lr=fundus_cfg("unused").lr,
+           default_images_per_sec=default_run["images_per_sec"], default_median_step_ms=default_run["median_step_ms"],
+           bn_run_images_per_sec=out["fundus_remat"]["images_per_sec"]["plain"],
+           bn_run_median_step_ms=out["fundus_remat"]["median_step_ms"]["plain"])
+    if cfg.batch_size_list != [16, 16, 16] or abs(cfg.lr - 3 * fundus_cfg("unused").lr) > 1e-12:
+        raise SystemExit(f"variants fundus_global_batch: batches {cfg.batch_size_list}, lr {cfg.lr}")
+
+    # --trace_dir over steps 2-12: a Chrome trace that names K1's kernel
+    trace_dir = os.path.join(VARIANTS_OUT, "trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    cfg = fundus_cfg("fundus_trace", trace_dir=trace_dir)
+    entry, summary, _ = variant_fit(torch, np, ram_mix, "fundus_trace", cfg, fundus_pipe(cfg), TRACE_STEPS, testset)
+    path = summary.get("trace")
+    text = open(path).read() if path and os.path.isfile(path) else ""
+    names_k1 = "mix_delta_flat_kernel" in text
+    record(entry, "fundus", trace=os.path.relpath(path, REPO) if path else None, trace_bytes=len(text),
+           trace_names_k1=names_k1, trace_k1_events=text.count("mix_delta_flat_kernel"))
+    if path:
+        os.remove(path)  # tens of MB; the check is made
+    if not names_k1 or not path.endswith("trace_steps_2-12.json"):
+        raise SystemExit(f"variants fundus_trace: trace {path}, names K1 {names_k1}")
+    emit("variants_summary", seconds=time.perf_counter() - t_phase, k1_launches=launches)
+    return out, launches
+
+
 # --- build -------------------------------------------------------------------
 
 
@@ -1682,6 +1967,7 @@ def run_phases(torch, card, name, bw):
     phase_png_tree(torch, np, ram_mix)
     det_runs, k2_shapes = phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, data_root)
     k2 = phase_k2(torch, bw, k2_shapes)
+    _, variant_launches = phase_variants(torch, np, ram_mix, arrays, testset, prostate, data_root, runs["default"])
 
     phase_profile(torch, ram_mix, arrays, prostate)
     phase_step_parity(torch, np, ram_mix, arrays)
@@ -1696,9 +1982,14 @@ def run_phases(torch, card, name, bw):
     line = {"kernels": []}
     for label, case, run in modes:
         k = kernels[f"{case}@{S}x{S}"]
+        # launches: the run at this entry's shape; the fundus variant runs
+        # (some at other batches) only in launches_by_run
+        variants = variant_launches["fundus"] if run == "default" else {}
         line["kernels"].append({
             "name": f"ram_mix[{label}]", "route": "cuda", "source": SOURCE_REL, "replaces": REPLACES,
-            "launches": runs[run]["k1_launches"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "launches": runs[run]["k1_launches"],
+            "launches_by_run": {run: runs[run]["k1_launches"], **variants},
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None, "floor_ms": k["floor_ms"], "kernel_ms": k["kernel_ms"],
             "ms_clean_flush": k["ms_clean_flush"], "floor_ms_clean_flush": k["floor_ms_clean_flush"], "path": k["path"],
@@ -1706,7 +1997,9 @@ def run_phases(torch, card, name, bw):
     k = kernels[f"delta@{PS}x{PS}"]
     line["kernels"].append({
         "name": f"ram_mix[band,delta]@prostate {PB}x{C}x{PS}x{PS}", "route": "cuda", "source": SOURCE_REL,
-        "replaces": REPLACES, "launches": prostate_run["k1_launches"], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "replaces": REPLACES, "launches": prostate_run["k1_launches"],
+        "launches_by_run": {"prostate": prostate_run["k1_launches"], **variant_launches["prostate"]},
+        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
         "floor_ms": k["floor_ms"], "kernel_ms": k["kernel_ms"], "ms_clean_flush": k["ms_clean_flush"],
         "floor_ms_clean_flush": k["floor_ms_clean_flush"], "path": k["path"],

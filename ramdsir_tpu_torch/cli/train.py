@@ -1,5 +1,5 @@
 """Train CLI: the JAX package's flags (`ramdsir_tpu/cli/train.py`) plus
---device.  A flag whose feature is not ported yet raises
+--device.  Every single-card variant runs; --num_devices > 1 raises
 NotImplementedError naming its ROADMAP.md item.
 
 Examples (RAM-DSIR on the card; fundus target domain 3, prostate target 5
@@ -12,7 +12,9 @@ with the five other domains as sources, each evaluated every epoch):
       --save_path runs/prostate_t5
 --compute_dtype bfloat16 runs the U-Net in bfloat16 (float32 master
 weights, RAM in float32).  --resume runs/fundus_t3/final_model.ckpt goes on
-from a full-state checkpoint of the port or of the JAX package.
+from a full-state checkpoint of the port or of the JAX package.  The
+variants: --norm gn|in, --num_classes 3 (prostate's softmax head), --remat,
+--global_batch 48, --trace_dir runs/trace.
 """
 from __future__ import annotations
 
@@ -43,7 +45,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--consistency", action="store_true")
     p.add_argument("--consistency_type", type=str, default="mse", choices=["mse", "kd"])
     p.add_argument("--save_path", type=str, required=True)
-    p.add_argument("--norm", type=str, default="bn")
+    p.add_argument("--norm", type=str, default="bn", choices=["bn", "gn", "in"],
+                   help="the encoder's and seg decoder's norm (the restoration decoder keeps DSBN)")
     p.add_argument("--activation", type=str, default="relu")
     p.add_argument("--image_size", type=int, default=256)
     p.add_argument("--compute_dtype", type=str, default="float32", choices=["float32", "bfloat16"])
@@ -52,13 +55,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="full-spectrum RAM with the per-step donor FFT (K1 full mode)")
     p.add_argument("--no_ram_banded_dft", action="store_true",
                    help="rfft2/irfft2 RAM instead of the banded restricted-DFT products")
-    p.add_argument("--remat", action="store_true")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the encoder + seg-decoder forward in the backward (less memory)")
     p.add_argument("--resume", type=str, default=None)
     p.add_argument("--max_steps", type=int, default=None, help="smoke-run cap")
-    p.add_argument("--trace_dir", type=str, default=None)
+    p.add_argument("--trace_dir", type=str, default=None,
+                   help="write a torch.profiler Chrome trace of steps 2-12 here")
     p.add_argument("--scan_window", type=int, default=None,
-                   help="accepted and recorded; the port dispatches step by step")
-    p.add_argument("--global_batch", type=int, default=None)
+                   help="accepted and recorded, and changes nothing: the port launches each step on "
+                        "its own whatever the value (in JAX it groups steps into one dispatch)")
+    p.add_argument("--global_batch", type=int, default=None,
+                   help="split this batch evenly over the source domains in place of the per-target "
+                        "tables; without --lr the LR scales by its ratio to the table's batch")
     p.add_argument("--device", type=str, default="cuda", help="torch device, e.g. cuda or cpu")
     return p.parse_args(argv)
 

@@ -71,6 +71,8 @@ class TrainConfig:
     # banded-DFT RAM: restricted DFT products instead of rfft2/irfft2
     ram_banded_dft: bool = True
     remat: bool = False
+    # accepted for parity: TPU layout choices of the same numerics in JAX;
+    # the port runs the one fused path whatever they say (train/steps.py)
     fused_dsbn: bool = True
     fused_dual: bool = True
     # accepted for parity; the port always runs the plain topology
@@ -79,9 +81,13 @@ class TrainConfig:
     loader: str = "process"
     num_workers: Optional[int] = None
     device_data: bool = True
-    # groups steps per dispatch in JAX and never changes results; recorded
+    # groups steps per dispatch in JAX and never changes results; the port
+    # launches each step on its own whatever the value
     scan_window: Optional[int] = None
-    global_batch: Optional[int] = None  # not ported: raises (ROADMAP.md)
+    # an even split of this batch over the source domains in place of the
+    # per-target tables, and (unless lr is given) the LR scaled by its ratio
+    # to the table's batch
+    global_batch: Optional[int] = None
     log_interval: int = 1
     log_images_every: int = 100
     checkpoint_resume: Optional[str] = None
@@ -94,6 +100,8 @@ class TrainConfig:
             cfg.epochs = DATASET_EPOCHS[cfg.dataset]
         if cfg.lr is None:
             cfg.lr = DATASET_LR[cfg.dataset]
+            if cfg.global_batch:
+                cfg.lr = cfg.lr * cfg.global_batch / sum(self._reference_batch_list())
         if cfg.num_classes is None:
             cfg.num_classes = DATASET_NUM_CLASSES[cfg.dataset]
         if cfg.ram_use_pallas:
@@ -102,8 +110,19 @@ class TrainConfig:
             cfg.ram_precompute_donor_amp = False
         return cfg
 
+    def _reference_batch_list(self) -> List[int]:
+        table = FUNDUS_BATCH_LIST if self.dataset == "fundus" else PROSTATE_BATCH_LIST
+        return table[self.test_domain_idx][: len(self.domain_idxs)]
+
     @property
     def batch_size_list(self) -> List[int]:
+        if self.global_batch:
+            n_dom = len(self.domain_idxs)
+            if self.global_batch % n_dom:
+                raise ValueError(
+                    f"--global_batch {self.global_batch} must divide by the {n_dom} source domains (even split)"
+                )
+            return [self.global_batch // n_dom] * n_dom
         if self.dataset == "fundus":
             return FUNDUS_BATCH_LIST[self.test_domain_idx]
         return PROSTATE_BATCH_LIST[self.test_domain_idx]

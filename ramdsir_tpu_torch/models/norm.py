@@ -1,4 +1,5 @@
-"""Batch normalisation with nn.BatchNorm2d semantics, NCHW (PyTorch port of
+"""Batch normalisation with nn.BatchNorm2d semantics, NCHW, and the per-sample
+GroupNorm and InstanceNorm of `--norm gn|in` (PyTorch port of
 `ramdsir_tpu/models/norm.py`).
 
 Train mode normalises with the biased batch variance and moves the running
@@ -32,6 +33,11 @@ order, rounding four times ((x - mean), * inv, * scale, + bias;
 `_low_precision_norm`): the fused float32 kernel rounds once, and a
 one-rounding bfloat16 forward lies further from JAX's bfloat16 forward than
 that lies from float32 (tests/test_torch_port_bf16.py).
+
+`recomputing(*modules)`: within it, every BatchNorm of the modules leaves its
+running statistics as they are.  `--remat` re-runs the encoder and seg
+decoder's forward in the backward (torch.utils.checkpoint), and the running
+statistics take one update a forward pass, as without it.
 """
 from __future__ import annotations
 
@@ -160,6 +166,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.batch_stats_only = False  # set by batch_statistics()
+        self.recomputing = False  # set by recomputing()
 
     def normalize_running(self, x: torch.Tensor) -> torch.Tensor:
         """Eval-mode normalisation with the running statistics."""
@@ -178,7 +185,12 @@ class BatchNorm(nn.Module):
         elif not self.training:
             return self.normalize_running(x)
         else:
-            args = (self.weight, self.bias, self.running_mean, self.running_var, self.momentum, self.eps)
+            running = (self.running_mean, self.running_var)
+            if self.recomputing:
+                # the update goes to copies: the same kernels as the first
+                # pass, so the recomputed activations are bit-equal to it
+                running = tuple(t.clone() for t in running)
+            args = (self.weight, self.bias, *running, self.momentum, self.eps)
             norm = lambda h: _train_norm(h, *args, n_valid)
         if dual:
             return torch.cat([norm(h) for h in x.chunk(2)])
@@ -186,17 +198,72 @@ class BatchNorm(nn.Module):
 
 
 @contextlib.contextmanager
-def batch_statistics(*modules: nn.Module) -> Iterator[None]:
-    """Every BatchNorm of `modules` normalises with batch statistics and
-    updates nothing while the context is open (see the module docstring)."""
+def _set_on_batch_norms(attr: str, modules: Sequence[nn.Module]) -> Iterator[None]:
     norms = [m for module in modules for m in module.modules() if isinstance(m, BatchNorm)]
     for m in norms:
-        m.batch_stats_only = True
+        setattr(m, attr, True)
     try:
         yield
     finally:
         for m in norms:
-            m.batch_stats_only = False
+            setattr(m, attr, False)
+
+
+def batch_statistics(*modules: nn.Module):
+    """Every BatchNorm of `modules` normalises with batch statistics and
+    updates nothing while the context is open (see the module docstring)."""
+    return _set_on_batch_norms("batch_stats_only", modules)
+
+
+def recomputing(*modules: nn.Module):
+    """Every BatchNorm of `modules` normalises as in training and leaves its
+    running statistics as they are while the context is open (--remat's
+    recompute)."""
+    return _set_on_batch_norms("recomputing", modules)
+
+
+def _per_sample(norm: str, dual: bool) -> None:
+    if dual:
+        raise ValueError(f"dual-half statistics are BatchNorm's only, not {norm}'s (it is per sample)")
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax's nn.GroupNorm(num_groups=1, epsilon=1e-5), the JAX package's
+    'gn' (`ramdsir_tpu/models/norm.py:620-621`): each sample normalised over
+    (C, H, W), then a per-channel weight and bias (the reference's
+    nn.GroupNorm(1, planes), `bn1.weight`, `bn1.bias`).  The statistics are
+    float32 and so is the output, whatever the input's dtype: flax promotes
+    a bfloat16 input with its float32 scale, so under `--compute_dtype
+    bfloat16` every layer after the first GroupNorm runs in float32 in the
+    JAX package, and here.  flax computes the variance as E[x^2] - E[x]^2,
+    torch's kernel by Welford's sums: they agree within the models' feature
+    bounds (tests/test_torch_port_variants.py)."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__(1, features, eps=eps)
+
+    def forward(self, x: torch.Tensor, *, dual: bool = False, n_valid: Optional[int] = None) -> torch.Tensor:
+        _per_sample("GroupNorm", dual)
+        return F.group_norm(x.float(), 1, self.weight, self.bias, self.eps)
+
+
+class InstanceNorm(nn.Module):
+    """nn.InstanceNorm2d's defaults, the JAX package's 'in'
+    (`ramdsir_tpu/models/norm.py:569-582`): each sample's channel normalised
+    over (H, W), no affine, no running statistics, no state.  Below float32
+    the statistics are float32 and the output is (x - mean) * inv in x's
+    dtype, each of the two steps rounded, as in JAX."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor, *, dual: bool = False, n_valid: Optional[int] = None) -> torch.Tensor:
+        _per_sample("InstanceNorm", dual)
+        if x.dtype == torch.float32:
+            return F.instance_norm(x, eps=self.eps)
+        var, mean = torch.var_mean(x.float(), dim=(2, 3), keepdim=True, correction=0)
+        return (x - mean.to(x.dtype)) * torch.rsqrt(var + self.eps).to(x.dtype)
 
 
 class DomainSpecificBatchNorm(nn.Module):

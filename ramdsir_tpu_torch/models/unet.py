@@ -24,9 +24,16 @@ and the norms' four steps (models/norm.py) round where the JAX package's
 do: with one rounding each, the port's bfloat16 forward lay further from
 JAX's than JAX's lies from float32 (tests/test_torch_port_bf16.py).
 
+Norms (`norm`, as the JAX package's `Norm` switch, `ramdsir_tpu/models/norm.py:585-624`):
+'bn' BatchNorm, 'gn' GroupNorm with one group, 'in' InstanceNorm, in the
+encoder and the seg decoder; `dual=True` (per-half statistics) is BN's only.
+The restoration decoder is domain-specific BN whatever `--norm` says, as in
+the JAX package (`ramdsir_tpu/train/state.py:665-672`).
+
 `s2d_levels` is accepted for configuration parity only: in the JAX package
 it moves the top stages into a 2x2 space-to-depth layout for the TPU's
-lanes, with numerics pinned equal to s2d_levels=0.  This port always runs
+lanes, with numerics pinned equal to s2d_levels=0, and is forced to 0 for
+the non-BN norms (`ramdsir_tpu/train/state.py:655`).  This port always runs
 the plain topology, which computes the same function.
 """
 from __future__ import annotations
@@ -39,7 +46,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ramdsir_tpu_torch.models.norm import BatchNorm, DomainSpecificBatchNorm
+from ramdsir_tpu_torch.models.norm import BatchNorm, DomainSpecificBatchNorm, GroupNorm, InstanceNorm
 from ramdsir_tpu_torch.ops.upsample import Upsample2x
 
 Domain = Union[int, Sequence[int], np.ndarray]
@@ -88,22 +95,23 @@ def _act(name: str):
     return lambda x: F.leaky_relu(x, 0.01)
 
 
-def _check_norm(norm: str, allowed: str) -> None:
-    if norm != allowed:
-        raise NotImplementedError(
-            f"norm {norm!r} is not ported yet (ROADMAP.md, off-path variants); use {allowed!r}"
-        )
+_NORMS = {"bn": BatchNorm, "gn": GroupNorm, "in": InstanceNorm}
+
+
+def _norm(norm: str, features: int) -> nn.Module:
+    if norm not in _NORMS:
+        raise ValueError(f"Normalization type {norm} is not supported (use one of {sorted(_NORMS)})")
+    return _NORMS[norm](features)
 
 
 class ConvD(nn.Module):
     def __init__(self, cin: int, planes: int, norm: str = "bn", first: bool = False, activation: str = "relu"):
         super().__init__()
-        _check_norm(norm, "bn")
         self.first = first
         self.act = _act(activation)
-        self.conv1, self.bn1 = _conv(cin, planes, 3), BatchNorm(planes)
-        self.conv2, self.bn2 = _conv(planes, planes, 3), BatchNorm(planes)
-        self.conv3, self.bn3 = _conv(planes, planes, 3), BatchNorm(planes)
+        self.conv1, self.bn1 = _conv(cin, planes, 3), _norm(norm, planes)
+        self.conv2, self.bn2 = _conv(planes, planes, 3), _norm(norm, planes)
+        self.conv3, self.bn3 = _conv(planes, planes, 3), _norm(norm, planes)
 
     def forward(self, x: torch.Tensor, *, dual: bool = False, n_valid: Optional[int] = None) -> torch.Tensor:
         kw = dict(dual=dual, n_valid=n_valid)
@@ -117,13 +125,12 @@ class ConvD(nn.Module):
 class ConvU(nn.Module):
     def __init__(self, planes: int, norm: str = "bn", first: bool = False, activation: str = "relu"):
         super().__init__()
-        _check_norm(norm, "bn")
         self.first = first
         self.act = _act(activation)
         if not first:
-            self.conv1, self.bn1 = _conv(2 * planes, planes, 3), BatchNorm(planes)
-        self.conv2, self.bn2 = _conv(planes, planes // 2, 1), BatchNorm(planes // 2)
-        self.conv3, self.bn3 = _conv(planes, planes, 3), BatchNorm(planes)
+            self.conv1, self.bn1 = _conv(2 * planes, planes, 3), _norm(norm, planes)
+        self.conv2, self.bn2 = _conv(planes, planes // 2, 1), _norm(norm, planes // 2)
+        self.conv3, self.bn3 = _conv(planes, planes, 3), _norm(norm, planes)
 
     def forward(
         self, x: torch.Tensor, prev: torch.Tensor, *, dual: bool = False, n_valid: Optional[int] = None
@@ -139,7 +146,8 @@ class ConvU(nn.Module):
 class ConvURec(nn.Module):
     def __init__(self, planes: int, norm: str = "dsbn", activation: str = "relu", num_domains: int = 3):
         super().__init__()
-        _check_norm(norm, "dsbn")
+        if norm != "dsbn":
+            raise ValueError(f"the restoration decoder's norm is 'dsbn', not {norm!r}")
         half = planes // 2
         self.act = _act(activation)
         self.conv1, self.bn1 = _conv(planes, half, 3), DomainSpecificBatchNorm(half, num_domains)

@@ -20,6 +20,11 @@ reaches the schedule's total_iters; the JAX package's loop would run
 `cfg.deterministic` (--deterministic) runs the whole of `fit` under
 `deterministic_mode`: on the card two runs from one seed then give the same
 parameters, statistics, Adam moments and losses bit for bit.
+
+`cfg.trace_dir` (--trace_dir) profiles steps 2-12 (`utils.profiler.TraceWindow`)
+into a Chrome trace there.  `cfg.scan_window` is recorded and changes
+nothing: in the JAX package it groups steps into one dispatch with the
+numerics of single steps; here each step is launched on its own.
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ from ramdsir_tpu_torch.train.state import init_state
 from ramdsir_tpu_torch.train.steps import check_supported, make_predict_fn, make_train_step
 from ramdsir_tpu_torch.utils.device import resolve_device
 from ramdsir_tpu_torch.utils.logging import MetricsWriter
-from ramdsir_tpu_torch.utils.profiler import StepTimer
+from ramdsir_tpu_torch.utils.profiler import StepTimer, TraceWindow
 from ramdsir_tpu_torch.utils.torch_compat import export_torch_checkpoint
 
 
@@ -179,6 +184,7 @@ def _fit(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset) -> 
     writer = MetricsWriter(os.path.join(save_dir, "log"))
     keeper = BestKeeper(save_dir)
     timer = StepTimer(device=device)
+    tracer = TraceWindow(cfg.trace_dir, device) if cfg.trace_dir else None
     summary: Dict = {}
 
     step = state.step
@@ -187,10 +193,14 @@ def _fit(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset) -> 
     while epoch < cfg.epochs and step < total_iters and not done:
         t_ep = time.time()
         for row in pipeline:
+            if tracer:
+                tracer.before_step(step)
             metrics = train_step(state, row, generator)
             lr = float(metrics.pop("lr"))
             names = list(metrics)
             values = torch.stack([metrics[k] for k in names]).tolist()  # one device sync
+            if tracer:
+                tracer.after_step(step)
             timer.tick(b_real)
             if step % cfg.log_interval == 0:
                 writer.add_scalars(dict(zip(names, values)), step, prefix="loss/")
@@ -217,6 +227,9 @@ def _fit(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset) -> 
         epoch += 1
 
     timer.mark()
+    if tracer:
+        tracer.close()  # a run that ended before the window's last step
+        summary["trace"] = tracer.path
     final_path = os.path.join(save_dir, "final_model.pth")
     export_torch_checkpoint(final_path, state.models)
     resume_path = os.path.join(save_dir, "final_model.ckpt")

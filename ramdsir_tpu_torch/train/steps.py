@@ -13,6 +13,27 @@ softmax head is computed from the logit difference l = logits[:, 1] -
 logits[:, 0], flattened to (B, H*W): cross-entropy over two classes is BCE
 on l, the class-1 dice is the dice of sigmoid(l), and the KD / MSE
 consistency has its binary form (ops/losses.py), as in the JAX package.
+With --num_classes C other than 2 prostate has the generic head: softmax over the
+classes, cross-entropy and the per-class dice without class 0, and the
+consistency on the (B, H, W, C) probabilities (`ramdsir_tpu/train/steps.py:132-148`).
+
+Variants (`ramdsir_tpu/train/steps.py:204-366`):
+  --norm gn|in   GroupNorm and InstanceNorm are per sample, so the one
+                 forward over the flat [clean; RAM] batch needs no per-half
+                 statistics (the JAX package vmaps over the two halves to
+                 the same effect); the restoration decoder stays DSBN.
+  fused_dual, fused_dsbn
+                 accepted and recorded; the step runs the one fused path.
+                 In the JAX package they choose a TPU layout with the same
+                 numerics: one forward over [clean; RAM] in place of two
+                 (`ramdsir_tpu/train/steps.py:214-224`), one segment-DSBN
+                 restoration pass in place of the per-domain loop (`:316-319`).
+  --remat        the encoder + seg-decoder forward runs under
+                 torch.utils.checkpoint and is recomputed in the backward;
+                 the recompute leaves the running statistics as they are
+                 (`models/norm.recomputing`), as `jax.checkpoint`, which
+                 has no side effect, does.  It draws no random number: the
+                 step's draws come before it.
 
 Randomness: every draw of a step (the RAM ratios and, with the fundus device
 pipeline, the scale-crop's apply/factor/offset draws) comes from
@@ -30,19 +51,23 @@ uncast float32 image (`ramdsir_tpu/train/steps.py:114`, `:242`, `:330`).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ramdsir_tpu_torch.config import CONSISTENCY_WEIGHT, POLY_POWER, TrainConfig
 from ramdsir_tpu_torch.data.device_pipeline import gather_and_augment, gather_prostate, sample_crop_draws
-from ramdsir_tpu_torch.models.norm import batch_statistics
+from ramdsir_tpu_torch.models.norm import batch_statistics, recomputing
 from ramdsir_tpu_torch.ops.losses import (
     bce_with_logits_loss,
     binary_kd_loss,
     binary_mse_consistency,
+    cross_entropy_loss,
     dice_loss,
+    dice_loss_multi,
     kd_loss,
     mse_loss,
 )
@@ -65,21 +90,11 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise NotImplementedError for what this port does not run yet, naming
-    the ROADMAP.md item."""
-    unported = [
-        (cfg.dataset != "fundus" and cfg.num_classes != 2,
-         f"--dataset {cfg.dataset} --num_classes {cfg.num_classes} (the softmax head)", "off-path variants"),
-        (bool(cfg.num_devices) and cfg.num_devices > 1, "--num_devices > 1", "Multi-GPU DDP"),
-        (cfg.remat, "--remat", "off-path variants"),
-        (bool(cfg.trace_dir), "--trace_dir", "the port's own benchmark"),
-        (cfg.norm != "bn", f"--norm {cfg.norm}", "off-path variants"),
-        (bool(cfg.global_batch), "--global_batch", "Multi-GPU DDP"),
-        (not (cfg.fused_dual and cfg.fused_dsbn), "the non-fused forward", "off-path variants"),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {item})")
+    """Raise NotImplementedError for more than one card (not ported yet,
+    ROADMAP.md: Multi-GPU DDP), ValueError for an unknown dtype or
+    consistency type."""
+    if cfg.num_devices and cfg.num_devices > 1:
+        raise NotImplementedError("--num_devices > 1 is not ported yet (ROADMAP.md: Multi-GPU DDP)")
     torch_dtype(cfg.compute_dtype)
     if cfg.consistency and cfg.consistency_type not in ("mse", "kd"):
         raise ValueError(f"unknown consistency_type {cfg.consistency_type!r} (use 'mse' or 'kd')")
@@ -124,6 +139,8 @@ def make_train_step(
     cfg = cfg.resolve()
     check_supported(cfg)
     is_fundus = cfg.dataset == "fundus"
+    binary_head = not is_fundus and cfg.num_classes == 2
+    dual_bn = cfg.norm == "bn"  # GN and IN are per sample: no per-half statistics
     bsl = list(batch_size_list or cfg.batch_size_list)[: len(cfg.domain_idxs)]
     b_real = sum(bsl)
     domains = np.repeat(np.arange(len(bsl)), bsl)  # per-sample DSBN labels
@@ -150,27 +167,45 @@ def make_train_step(
 
     def seg_head(logits: torch.Tensor, mask: torch.Tensor):
         """(repr, supervised loss, dice loss) of NCHW logits; `repr` feeds
-        the consistency loss: fundus sigmoid probabilities, prostate the
-        flat (B, H*W) logit-difference map."""
+        the consistency loss: fundus sigmoid probabilities, the binary
+        prostate head the flat (B, H*W) logit-difference map, the generic
+        head (B, H, W, C) softmax probabilities."""
         if is_fundus:
             logits = logits.float()
             pred = torch.sigmoid(logits)
             return pred, bce_with_logits_loss(logits, mask), dice_loss(pred, mask)
-        l = (logits[:, 1].float() - logits[:, 0].float()).reshape(logits.shape[0], -1)
-        m = mask.reshape(mask.shape[0], -1)
-        return l, bce_with_logits_loss(l, m), dice_loss(torch.sigmoid(l), m == 1)
+        if binary_head:
+            l = (logits[:, 1].float() - logits[:, 0].float()).reshape(logits.shape[0], -1)
+            m = mask.reshape(mask.shape[0], -1)
+            return l, bce_with_logits_loss(l, m), dice_loss(torch.sigmoid(l), m == 1)
+        lg = logits.float().permute(0, 2, 3, 1)  # the class axis last, as the losses take it
+        pred = torch.softmax(lg, dim=-1)
+        return pred, cross_entropy_loss(lg, mask), dice_loss_multi(pred, mask, cfg.num_classes, ignore_index=0)
 
     def consistency(repr2: torch.Tensor, repr1: torch.Tensor) -> torch.Tensor:
         if cfg.consistency_type == "kd":
             # eps guards the log against float32 saturation
-            return (kd_loss if is_fundus else binary_kd_loss)(repr2, repr1, eps=1e-8)
-        return (mse_loss if is_fundus else binary_mse_consistency)(repr2, repr1)
+            return (binary_kd_loss if binary_head else kd_loss)(repr2, repr1, eps=1e-8)
+        return (binary_mse_consistency if binary_head else mse_loss)(repr2, repr1)
+
+    def forward(state: TrainState, x: torch.Tensor, dual: bool = False):
+        """(bottleneck, logits) of the encoder and the seg decoder."""
+        enc, dec = state.models["encoder"], state.models["seg_decoder"]
+
+        def run(x):
+            feats = enc(x, dual=dual)
+            return feats[-1], dec(feats, dual=dual)
+
+        if not cfg.remat:
+            return run(x)
+        return checkpoint(
+            run, x, use_reentrant=False, preserve_rng_state=False,  # it draws nothing
+            context_fn=lambda: (contextlib.nullcontext(), recomputing(enc, dec)),
+        )
 
     sup_tag = "loss_bce" if is_fundus else "loss_ce"
 
     def loss_fn(state: TrainState, batch, draws):
-        enc = state.models["encoder"]
-        dec = state.models["seg_decoder"]
         metrics: Dict[str, torch.Tensor] = {}
         if cfg.ram:
             if "donor_amp" in batch:
@@ -186,14 +221,14 @@ def make_train_step(
 
         if cfg.ram:
             # one forward over [clean; RAM]: per-half BN statistics, the two
-            # running-stat updates in order (models/norm.py)
+            # running-stat updates in order (models/norm.py); GN and IN are
+            # per sample and need no halves
             half = img.shape[0]
-            feats = enc(torch.cat([img, nchw(img_freq)]).to(compute_dtype), dual=True)
-            logits_all = dec(feats, dual=True)
+            last, logits_all = forward(state, torch.cat([img, nchw(img_freq)]).to(compute_dtype), dual=dual_bn)
             logits1, logits2 = logits_all[:b_real], logits_all[half : half + b_real]
-            feats_f_last = feats[-1][half:]
+            feats_f_last = last[half:]
         else:
-            logits1 = dec(enc(img.to(compute_dtype)))[:b_real]
+            logits1 = forward(state, img.to(compute_dtype))[1][:b_real]
 
         pred1, loss_sup1, loss_dice1 = seg_head(logits1, mask)
         loss = loss_sup1 + loss_dice1

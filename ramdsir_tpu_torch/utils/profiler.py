@@ -1,7 +1,9 @@
-"""Step timing and throughput (PyTorch port of `ramdsir_tpu/utils/profiler.py:15-71`)."""
+"""Step timing and throughput (PyTorch port of `ramdsir_tpu/utils/profiler.py:15-71`),
+and the --trace_dir profiler window (`ramdsir_tpu/train/loop.py:386-393`)."""
 from __future__ import annotations
 
 import contextlib
+import os
 import statistics
 import time
 from typing import Iterator, List, Optional, Union
@@ -77,3 +79,48 @@ class StepTimer:
     @property
     def median_step_ms(self) -> float:
         return 1e3 * statistics.median(self.step_seconds) if self.step_seconds else 0.0
+
+
+class TraceWindow:
+    """torch.profiler over steps FIRST..LAST of a run (--trace_dir; 2-12, as
+    the JAX package's jax.profiler window, which skips the compile step):
+    CPU activity and, on a CUDA device, the card's kernels.  The trace stops
+    after a CUDA synchronise when step LAST ends, or at `close()` if the run
+    ends first, and goes to `trace_dir` as a Chrome trace; `path` names the
+    file.  It reads the steps and changes none of them."""
+
+    FIRST, LAST = 2, 12
+
+    def __init__(self, trace_dir: str, device: Union[str, torch.device]):
+        self.trace_dir = trace_dir
+        self.device = torch.device(device)
+        self.path: Optional[str] = None
+        self._prof = None
+        self._last_seen = self.FIRST
+
+    def before_step(self, step: int) -> None:
+        if step == self.FIRST and self._prof is None and self.path is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=activities)
+            self._prof.start()
+
+    def after_step(self, step: int) -> None:
+        self._last_seen = step
+        if step == self.LAST:
+            self.close()
+
+    def close(self) -> None:
+        if self._prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._prof.stop()
+        os.makedirs(self.trace_dir, exist_ok=True)
+        self.path = os.path.join(self.trace_dir, f"trace_steps_{self.FIRST}-{self._last_seen}.json")
+        self._prof.export_chrome_trace(self.path)
+        self._prof = None
+        print(f"profiler trace (steps {self.FIRST}-{self._last_seen}) written to {self.path}", flush=True)

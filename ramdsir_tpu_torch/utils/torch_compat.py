@@ -4,9 +4,9 @@ modules, and the reference's checkpoint format (PyTorch port of
 
 The JAX trees are nested dicts of numpy arrays, NHWC, conv kernels
 (kh, kw, in, out), norms under flax's auto-named submodules
-(`bn1.BatchNorm_0.scale`, DSBN banks stacked as (domains, C)).  The torch
-state dicts are NCHW, kernels (out, in, kh, kw), `bn1.weight`,
-`bn1.bns.{d}.weight`.
+(`bn1.BatchNorm_0.scale`, `bn1.GroupNorm_0.scale`, DSBN banks stacked as
+(domains, C); InstanceNorm has no entry).  The torch state dicts are NCHW,
+kernels (out, in, kh, kw), `bn1.weight`, `bn1.bns.{d}.weight`.
 
 Both ways: `jax_params_to_torch` / `load_jax_params` read the JAX trees,
 `torch_to_jax_params` writes them from the modules, and
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ramdsir_tpu_torch.models.norm import BatchNorm, DomainSpecificBatchNorm
+from ramdsir_tpu_torch.models.norm import BatchNorm, DomainSpecificBatchNorm, GroupNorm
 
 # flax names norm submodules by class: a path part with one of these
 # prefixes belongs to a norm layer, everything else is a conv
@@ -98,11 +98,11 @@ def load_jax_params(models: Mapping[str, nn.Module], params: Mapping, batch_stat
 
 
 def _layers(module: nn.Module, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], nn.Module]]:
-    """(path, layer) of every conv and norm under `module`; a DSBN bank is
-    one layer."""
+    """(path, layer) of every conv and every norm with parameters under
+    `module`; a DSBN bank is one layer."""
     for name, child in module.named_children():
         path = prefix + (name,)
-        if isinstance(child, (nn.Conv2d, BatchNorm, DomainSpecificBatchNorm)):
+        if isinstance(child, (nn.Conv2d, BatchNorm, DomainSpecificBatchNorm, GroupNorm)):
             yield path, child
         else:
             yield from _layers(child, path)
@@ -132,7 +132,7 @@ def _module_to_flax(module: nn.Module, values: Mapping[str, np.ndarray]) -> Tupl
             _put(trees["params"], path + ("bias",), values[f"{key}.bias"])
             continue
         dsbn = isinstance(layer, DomainSpecificBatchNorm)
-        sub = "DomainSpecificBatchNorm_0" if dsbn else "BatchNorm_0"
+        sub = f"{type(layer).__name__}_0"  # flax's auto-name of the norm
         for src, collection, dst in _NORM_FIELDS:
             keys = [f"{key}.bns.{d}.{src}" for d in range(len(layer.bns))] if dsbn else [f"{key}.{src}"]
             if keys[0] in values:  # a DSBN bank is stacked to (domains, C)

@@ -1,5 +1,6 @@
-"""The port's train and eval CLIs on the CPU (fundus and prostate), its
-import hygiene, and its refusals."""
+"""The port's train and eval CLIs on the CPU (fundus and prostate), each
+single-card variant flag of the train CLI, its import hygiene, and its one
+refusal (more than one card)."""
 import ast
 import json
 import os
@@ -351,7 +352,7 @@ print(bad)
     for new in ("native", "ops.metrics", "ops.postprocess", "ops.resize", "data.loaders", "train.evaluate",
                 "train.checkpoint", "utils.viz", "cli.test_fundus_slice", "data.nifti", "data.prostate",
                 "cli.test_prostate_volume", "utils.msgpack", "data.png", "ops.image", "ops.upsample",
-                "ops.cuda_build"):
+                "ops.cuda_build", "utils.profiler", "models.norm"):
         assert f"ramdsir_tpu_torch.{new}" in names, new
     assert bad == [], bad
 
@@ -414,21 +415,79 @@ def test_failing_compiler_raises(monkeypatch):
         postprocess.connectivity_region_analysis(m)
 
 
-@pytest.mark.parametrize(
-    "flags",
-    [
-        ["--dataset", "prostate", "--num_classes", "3"],
-        ["--num_devices", "2"],
-        ["--remat"],
-        ["--trace_dir", "trace"],
-        ["--norm", "gn"],
-        ["--global_batch", "18"],
-    ],
-    ids=lambda f: f[0].lstrip("-"),
-)
+@pytest.mark.parametrize("flags", [["--num_devices", "2"]], ids=lambda f: f[0].lstrip("-"))
 def test_unported_flags_raise(tmp_path, flags):
-    """Each flag whose feature is not ported raises before anything runs;
-    for --dataset, the prostate softmax head (more than two classes)."""
+    """More than one card is not ported: it raises before anything runs."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli_main(["--device", "cpu", "--save_path", str(tmp_path / "run"), "--ram", *flags])
     assert not (tmp_path / "run").exists()
+
+
+@pytest.fixture(scope="module")
+def variant_trees(tmp_path_factory):
+    """A fundus tree at 48^2 (8 train pairs a domain, 2 test pairs) and a
+    prostate tree of 48^2 slices with two 8-slice test volumes."""
+    from ramdsir_tpu_torch.data.synthetic import make_fundus_tree, make_prostate_tree, make_prostate_volumes
+
+    root = tmp_path_factory.mktemp("variant_trees")
+    make_fundus_tree(str(root / "f"), per_domain_train=8, per_domain_test=2, size=48)
+    make_prostate_tree(str(root / "p"), per_domain=4, size=48)
+    make_prostate_volumes(str(root / "p"), per_domain=2, depth=8, size=48)
+    return root
+
+
+VARIANT_FLAGS = {
+    "num_classes": ["--dataset", "prostate", "--num_classes", "3"],
+    "remat": ["--remat"],
+    "trace_dir": ["--trace_dir", "TRACE", "--epochs", "2", "--max_steps", "3"],
+    "norm_gn": ["--norm", "gn"],
+    "norm_in": ["--norm", "in"],
+    "global_batch": ["--global_batch", "18"],
+    "scan_window": ["--scan_window", "4"],
+}
+
+
+@pytest.mark.parametrize("name", list(VARIANT_FLAGS))
+def test_variant_flags_run(variant_trees, tmp_path, capsys, name):
+    """cli.train --device cpu with each variant flag: one short epoch (the
+    trace's window needs a third step, so two epochs there), finite losses
+    every step, the eval's CSV row, the final .pth / .ckpt and the run
+    config; and what the flag changes shows."""
+    flags = [str(tmp_path / "trace") if f == "TRACE" else f for f in VARIANT_FLAGS[name]]
+    prostate = "prostate" in flags
+    data = ["--data_root", str(variant_trees / ("p" if prostate else "f"))]
+    data += (["--domain_idxs", "0,1,2,3,4", "--test_domain_idx", "5"] if prostate
+             else ["--domain_idxs", "1,2,3", "--test_domain_idx", "0", "--image_size", "48", "--is_out_domain"])
+    run = tmp_path / "run"
+    summary = cli_main(["--device", "cpu", "--ram", "--rec", "--consistency", "--consistency_type", "kd",
+                        "--save_path", str(run), "--epochs", "1", "--max_steps", "2", "--test_batch_size", "2",
+                        *data, *flags])
+    rows = [json.loads(line) for line in (run / "log" / "metrics.jsonl").read_text().splitlines()]
+    losses = [r for r in rows if "loss/loss" in r]
+    steps = 3 if name == "trace_dir" else 1 if name == "global_batch" else 2  # 8 images a domain, 6 a batch
+    assert [r["step"] for r in losses] == list(range(steps)) and summary["steps"] == steps
+    sup = "loss_ce" if prostate else "loss_bce"
+    keys = {f"{sup}_1", "loss_dice_1", f"{sup}_2", "loss_dice_2", "loss_consistency", "loss_rec", "loss"}
+    assert all({k[5:] for k in r if k.startswith("loss/")} == keys for r in losses)
+    assert all(np.isfinite(r[f"loss/{k}"]) for r in losses for k in keys)
+    target = 5 if prostate else 0
+    assert len((run / f"{target}_val_log.csv").read_text().splitlines()) == (2 if name == "trace_dir" else 1)
+    for f in ("final_model.pth", "final_model.ckpt", "run_config.json"):
+        assert (run / f).is_file(), f
+    cfg = json.loads((run / "run_config.json").read_text())["config"]
+    weights = torch.load(run / "final_model.pth", map_location="cpu")["encoder_state_dict"]
+    if name == "num_classes":
+        head = torch.load(run / "final_model.pth", map_location="cpu")["seg_decoder_state_dict"]["out1.weight"]
+        assert cfg["num_classes"] == 3 and head.shape[0] == 3
+    elif name.startswith("norm"):
+        assert cfg["norm"] == name[-2:]
+        assert ("convd1.bn1.weight" in weights) == (name == "norm_gn")
+        assert not any("running" in k for k in weights)
+    elif name == "global_batch":
+        assert cfg["global_batch"] == 18 and cfg["lr"] == pytest.approx(2e-3 * 18 / 16)
+    elif name == "trace_dir":
+        assert summary["trace"] == str(tmp_path / "trace" / "trace_steps_2-2.json")
+        assert os.path.isfile(summary["trace"])
+        assert f"profiler trace (steps 2-2) written to {summary['trace']}" in capsys.readouterr().out
+    else:
+        assert cfg[name] == (True if name == "remat" else 4)

@@ -1,7 +1,8 @@
 """K1 and K2 on the card against their plain versions, the eval path on
 the card against the CPU, a bfloat16 step through K1, a `.ckpt` round trip
-of a card state, and deterministic steps that repeat bit for bit (marker
-`cuda`; skipped without a card).
+of a card state, deterministic steps that repeat bit for bit, the GN / IN
+forwards against the CPU and --remat bit-equal to no remat (marker `cuda`;
+skipped without a card).
 
 These tests import neither JAX nor the JAX package, so they also run where
 JAX is not installed; the root conftest.py imports JAX, so run them there
@@ -351,6 +352,56 @@ def test_deterministic_steps_repeat_bit_for_bit(gen, compute_dtype):
     (a, ma, ka), (b, mb, kb) = _deterministic_steps(cfg), _deterministic_steps(cfg)
     assert not torch.are_deterministic_algorithms_enabled()
     assert ka == kb == 2 * 8
+    for x, y in zip(ma, mb):
+        assert x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
+    for name, m in a.models.items():
+        for k, v in m.state_dict().items():
+            assert torch.equal(v, b.models[name].state_dict()[k]), f"{name}.{k}"
+    pa = [p for m in a.models.values() for p in m.parameters()]
+    pb = [p for m in b.models.values() for p in m.parameters()]
+    for p, q in zip(pa, pb):
+        sa, sb = a.optimizer.state[p], b.optimizer.state[q]
+        assert sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+# --- the single-card variants ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("norm", ["gn", "in"])
+def test_norm_forward_on_card_matches_cpu(gen, norm):
+    """The encoder + seg decoder with GroupNorm / InstanceNorm in train mode,
+    the same weights on the card and on the CPU (float32, TF32 off): logits
+    within the models' feature bound of tests/test_torch_port_models.py
+    (FEAT_TOL, atol 5e-4, rtol 1e-3; InstanceNorm's statistics over the 4x4
+    bottleneck put the two 3.3e-4 apart at most)."""
+    from ramdsir_tpu_torch.models.unet import Decoder, Encoder, init_weights
+
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        x = torch.randn((4, 3, 64, 64), generator=torch.Generator().manual_seed(2))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            enc, dec = Encoder(norm=norm), Decoder(norm=norm)
+            for m in (enc, dec):
+                init_weights(m, torch.Generator().manual_seed(3))
+                m.to(dev).train()
+            with torch.no_grad():
+                out[dev] = dec(enc(x.to(dev))).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=5e-4, rtol=1e-3)
+
+
+def test_remat_on_card_is_bit_equal_under_deterministic(gen):
+    """Two fundus steps with and without --remat under deterministic_mode:
+    the running statistics (which the recompute must not update again), the
+    parameters, the Adam moments and the losses bit-equal."""
+    from ramdsir_tpu_torch.config import TrainConfig
+
+    base = dict(dataset="fundus", domain_idxs=(1, 2, 3), test_domain_idx=0, ram=True, rec=True, is_out_domain=True,
+                consistency=True, consistency_type="kd", image_size=64, device="cuda")
+    (a, ma, _), (b, mb, _) = (_deterministic_steps(TrainConfig(**base, remat=r).resolve()) for r in (False, True))
     for x, y in zip(ma, mb):
         assert x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
     for name, m in a.models.items():

@@ -273,11 +273,6 @@ def test_prostate_step_params_and_running_stats(step_run):
     check_params_and_running_stats(jax_params, port_params, step_run["cfg"].lr)
 
 
-def test_softmax_head_raises():
-    with pytest.raises(NotImplementedError, match="off-path variants"):
-        make_train_step(TrainConfig(**dict(CFG, num_classes=3), device="cpu"), total_iters=10)
-
-
 # --- eval ---------------------------------------------------------------------------
 
 
