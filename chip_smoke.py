@@ -131,12 +131,25 @@ result line):
               each way), --global_batch 48 (LR x 3; img/s beside the
               default run's) and --trace_dir (steps 2-12, a Chrome trace
               that names K1's kernel)
+  host_loader training from the host loaders (device_data=False): fundus
+              at the reference configuration from png_tree's 800^2 tree, two
+              epochs each under the process and the thread loader (median
+              step, img/s, the host's wait for the loader and the copies'
+              device time a step, peak memory, for the cold and the warm
+              epoch, beside the device pipeline's median step on the same
+              tree), and prostate at 384^2 (process) from prostate_path's
+              slices written as the .npy tree; image grids every 5 steps,
+              each PNG read back equal; K1 (full mode) once a step and
+              bit-equal in the warm-up steps; the two loader kinds' first
+              batches equal for one seed; a card step on a host batch
+              against the CPU step (TF32 off) within step_parity's bounds
 Then the card line from nvidia-smi, the kernels line (K1 per mode and at
 the prostate shape, the variant runs' launches added to the band-delta
-entries by run; K2 summed over a deterministic step's 8 launches for each
+entries by run and the host-loader runs' to the full entry; K2 summed over a deterministic step's 8 launches for each
 run, and at the largest shape), and the result line.
 Run artefacts go to chiprun_out/chip_smoke/ (prostate: chip_smoke/prostate/);
-the .pth and .ckpt files and the NIfTI volumes are deleted at exit.
+the .pth and .ckpt files, the NIfTI volumes, the PNGs and the .npy slices are
+deleted at exit.
 """
 import contextlib
 import json
@@ -172,6 +185,8 @@ PROSTATE_OUT = os.path.join(OUT, "prostate")
 PNG_OUT = os.path.join(OUT, "png_tree")
 PNG_SIZE, PNG_TRAIN, PNG_TEST = 800, 32, 50  # source size, train pairs a domain, target test pairs
 PNG_FILTERS = (0, 1, 2, 3, 4, "adaptive")  # the n-th file written takes PNG_FILTERS[n % 6]
+HOST_OUT = os.path.join(OUT, "host_loader")
+HOST_EPOCHS, HOST_LOG_IMAGES, HOST_COMPARED_BATCHES = 2, 5, 4  # fundus: 10 steps an epoch
 DET_STEPS = 8  # steps of each --deterministic run
 SOURCE_K2 = "ramdsir_tpu_torch/csrc/upsample2x.cu"
 # K2 has no TPU kernel: the JAX package's upsample is jax.image.resize, differentiated by XLA
@@ -1387,6 +1402,7 @@ def phase_png_tree(torch, np, ram_mix):
         resize_ms_per_image={"bilinear_rgb": ms(cost["resize_bilinear"]), "nearest_mask": ms(cost["resize_nearest"])},
         from_tree_s=from_tree_s, from_tree_images=len(images), from_tree_equal=from_tree_equal,
         train_s=train_s, steps=summary["steps"], k1_launches=k1, median_step_ms=summary["median_step_ms"],
+        images_per_sec=summary["images_per_sec"],
         cup_dice=summary["cup_dice"], disc_dice=summary["disc_dice"],
         eval_load_share=timing["load"] / timing["wall"], **eval_fields(timing, PNG_TEST),
         eval_cli=dict(seconds=eval_cli_s, num=res.num, **six, load_share=res.timing["load"] / res.timing["wall"],
@@ -1405,6 +1421,167 @@ def phase_png_tree(torch, np, ram_mix):
         raise SystemExit(f"png_tree: the eval CLI scored {res.num} images: {six}")
     if len(written) != PNG_TEST or round_trip != PNG_TEST:
         raise SystemExit(f"png_tree: {len(written)} overlays written, {round_trip} read back equal")
+    return entry
+
+
+# --- the host loaders ---------------------------------------------------------------
+
+
+def host_fit(torch, np, ram_mix, name, cfg, steps=None):
+    """`fit` on the host loaders (cfg.device_data=False) with K1 held to its
+    plain version in the untimed warm-up steps and every PNG the run writes
+    recorded: the run's entry, with the epochs' "input/" rows (median step,
+    img/s, the host's wait for the loader, the copies' device time, the
+    memory high-water marks).  Losses finite every step, K1 launches ==
+    steps on full_vec, bit-equal; one PNG per tag at each logged step, each
+    read back equal."""
+    from ramdsir_tpu_torch.data import png
+    from ramdsir_tpu_torch.train.loop import fit
+    from ramdsir_tpu_torch.utils.profiler import StepTimer
+
+    shutil.rmtree(cfg.save_path, ignore_errors=True)
+    sync(torch)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ram_mix.launches = 0
+    ram_mix.launches_by_path.update(dict.fromkeys(ram_mix.launches_by_path, 0))
+    errs, written, write = [], {}, png.write
+
+    def recording_write(path, array, **kw):
+        written[path] = np.array(array)
+        return write(path, array, **kw)
+
+    checked = StepTimer().warmup
+    t0 = time.perf_counter()
+    with k1_held_to_plain(ram_mix, errs, checked), mock.patch.object(png, "write", recording_write):
+        summary = fit(cfg, max_steps=steps)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    rows = [json.loads(line) for line in open(os.path.join(cfg.save_path, "log", "metrics.jsonl"))]
+    losses = [{k: v for k, v in r.items() if k.startswith("loss/")} for r in rows if "loss/loss" in r]
+    finite = len(losses) == summary["steps"] and all(np.all(np.isfinite(list(r.values()))) for r in losses)
+    epochs = [{k.split("/", 1)[1]: v for k, v in r.items() if k.startswith("input/")} for r in rows if "input/epoch" in r]
+    logged = [s for s in range(summary["steps"]) if s % cfg.log_images_every == 0]
+    tags = 7 if cfg.dataset == "fundus" else 5
+    grid_paths = [p for p in written if os.sep + "images" + os.sep in p]
+    round_trip = sum(np.array_equal(png.decode(p).array, written[p]) for p in grid_paths)
+    evals = [r["eval/avg_dice"] for r in rows if "eval/avg_dice" in r]
+    paths = {p: k for p, k in ram_mix.launches_by_path.items() if k}
+    entry = dict(
+        run=name, loader=cfg.loader, dataset=cfg.dataset, steps=summary["steps"], epochs_run=len(epochs),
+        batch=sum(cfg.batch_size_list), image_size=cfg.image_size, k1_launches=ram_mix.launches, k1_paths=paths,
+        k1_max_abs_err=max(float(e) for e in errs) if errs else None, k1_checked_steps=checked,
+        losses_finite=finite, first_loss=losses[0]["loss/loss"], last_loss=losses[-1]["loss/loss"],
+        median_step_ms=summary["median_step_ms"], images_per_sec=summary["images_per_sec"],
+        peak_memory_bytes=torch.cuda.max_memory_allocated() if DEVICE == "cuda" else "not measured", wall_s=wall,
+        host_input=summary["host_input"],
+        epochs=epochs, grids=dict(logged_steps=logged, tags=tags, pngs=len(grid_paths), round_trip=round_trip),
+        evals=len(evals), last_eval_avg_dice=evals[-1] if evals else None,
+    )
+    bad = (not finite or entry["k1_launches"] != summary["steps"] or paths != {"full_vec": summary["steps"]}
+           or entry["k1_max_abs_err"] != 0.0 or len(grid_paths) != tags * len(logged) or round_trip != len(grid_paths))
+    if bad:
+        emit("host_loader", **entry)
+        raise SystemExit(f"host_loader {name}: {summary['steps']} steps, K1 {entry['k1_launches']} on {paths} "
+                         f"(max err {entry['k1_max_abs_err']}), losses finite {finite}, "
+                         f"{len(grid_paths)} grids for {len(logged)} logged steps, {round_trip} read back equal")
+    return entry
+
+
+def phase_host_loader(torch, np, ram_mix, png_run, prostate, prostate_root):
+    """Training from the host loaders (device_data=False), the reference's
+    input path: fundus at the reference configuration from the 800^2 PNG
+    tree of phase png_tree, HOST_EPOCHS epochs under loader="process" and
+    again under "thread" (the first epoch decodes, the second reads the
+    decode cache), beside the device pipeline's median step on the same
+    tree (png_tree's run); prostate at 384^2 under "process" from phase
+    prostate_path's slices, written as the .npy tree.  Image grids every
+    HOST_LOG_IMAGES steps.  Checks: finite losses, K1 (full_vec) once a step
+    and bit-equal in the warm-up steps, every grid read back equal, the two
+    loader kinds' first batches equal for one seed, and one card step on a
+    host batch against the CPU step on the same batch (TF32 off) within
+    step_parity's bounds."""
+    import dataclasses
+    import types
+
+    from ramdsir_tpu_torch.config import TrainConfig
+    from ramdsir_tpu_torch.train.loop import build_train_pipeline
+
+    t_phase = time.perf_counter()
+    data_root = os.path.join(PNG_OUT, "data")
+    fundus_cfg = lambda loader: TrainConfig(
+        data_root=data_root, dataset="fundus", domain_idxs=(1, 2, 3), test_domain_idx=0, ram=True, rec=True,
+        consistency=True, consistency_type="kd", is_out_domain=True, image_size=S, epochs=HOST_EPOCHS,
+        save_path=os.path.join(HOST_OUT, f"fundus_{loader}"), device=DEVICE, device_data=False, loader=loader,
+        log_images_every=HOST_LOG_IMAGES,
+    ).resolve()
+    runs = {}
+    for loader in ("process", "thread"):
+        runs[f"fundus_{loader}"] = host_fit(torch, np, ram_mix, f"fundus_{loader}", fundus_cfg(loader))
+    for entry in runs.values():
+        entry["device_pipeline"] = {k: png_run[k] for k in ("median_step_ms", "images_per_sec")}
+        emit("host_loader", **entry)
+
+    # the thread and the process loader build the same batches for one seed
+    t0 = time.perf_counter()
+    firsts = {}
+    for loader in ("process", "thread"):
+        pipe = build_train_pipeline(fundus_cfg(loader), os.path.join(data_root, "fundus"))
+        try:
+            it = iter(pipe)
+            firsts[loader] = [next(it) for _ in range(HOST_COMPARED_BATCHES)]
+        finally:
+            getattr(pipe, "shutdown", lambda: None)()
+    same = all(np.array_equal(a[k], b[k]) for a, b in zip(firsts["process"], firsts["thread"]) for k in a)
+    batch_check_s = time.perf_counter() - t0
+
+    # one step on a host batch, card against CPU
+    cfg = fundus_cfg("process")
+    batch = firsts["process"][0]
+    draws = {"ratio": torch.randint(1, 11, (sum(cfg.batch_size_list),), generator=torch.Generator().manual_seed(5))
+             .float() / 10.0}
+    host = types.SimpleNamespace(device_data=None)
+    with exact_float32(torch):
+        card = step_from_seed(torch, ram_mix, cfg, host, {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()},
+                              {k: v.to(DEVICE) for k, v in draws.items()}, device=DEVICE)
+        t0 = time.perf_counter()
+        cpu = step_from_seed(torch, ram_mix, dataclasses.replace(cfg, device="cpu"), host,
+                             {k: torch.from_numpy(v) for k, v in batch.items()}, draws, device="cpu")
+        cpu_s = time.perf_counter() - t0
+    loss_rel, param_err, stat_err, stats_ok = step_distance(
+        torch, (card[0], {k: v.cpu() for k, v in card[1].items()}), cpu[:2])
+    parity = dict(loss_max_rel=loss_rel, loss_tol=1e-5, params_max_abs=param_err, params_tol=2.5 * cfg.lr,
+                  running_stats_max_abs=stat_err, stats_tol="rtol 1e-4, atol 1e-5", k1_launches=card[2],
+                  cpu_step_s=cpu_s, batch_dtypes={k: str(v.dtype) for k, v in batch.items()})
+    parity_ok = loss_rel <= 1e-5 and param_err <= 2.5 * cfg.lr and stats_ok and card[2] == 1
+
+    # prostate: phase prostate_path's slices as the .npy tree, then fit
+    base = os.path.join(prostate_root, "prostate")
+    t0 = time.perf_counter()
+    for dom, arr in prostate.items():
+        for kind, key in (("image", "images"), ("mask", "masks")):
+            os.makedirs(os.path.join(base, dom, kind), exist_ok=True)
+            for i, a in enumerate(arr[key]):
+                np.save(os.path.join(base, dom, kind, f"{dom}_{i:03d}.npy"), a)
+    write_s = time.perf_counter() - t0
+    try:
+        cfg = prostate_config(TrainConfig, os.path.join(HOST_OUT, "prostate_process"), prostate_root,
+                              device_data=False, loader="process", log_images_every=HOST_LOG_IMAGES)
+        runs["prostate_process"] = host_fit(torch, np, ram_mix, "prostate_process", cfg, steps=PROSTATE_STEPS)
+    finally:
+        for dom in prostate:
+            shutil.rmtree(os.path.join(base, dom), ignore_errors=True)
+    runs["prostate_process"]["slice_tree_write_s"] = write_s
+    emit("host_loader", **runs["prostate_process"])
+    summary = dict(seconds=time.perf_counter() - t_phase, loaders_equal=same, compared_batches=HOST_COMPARED_BATCHES,
+                   batch_check_s=batch_check_s, card_cpu_step=parity,
+                   k1_launches={k: v["k1_launches"] for k, v in runs.items()})
+    emit("host_loader_summary", **summary)
+    if not same:
+        raise SystemExit("host_loader: the thread and the process loader built different batches for one seed")
+    if not parity_ok:
+        raise SystemExit(f"host_loader: a card step on a host batch parts from the CPU step: {parity}")
+    return runs
 
 
 # --- --deterministic and K2 ---------------------------------------------------------
@@ -1920,7 +2097,7 @@ def main():
         # the weights and the data
         for root, _, files in os.walk(OUT):
             for f in files:
-                if f.endswith((".pth", ".ckpt", ".nii.gz", ".png")):
+                if f.endswith((".pth", ".ckpt", ".nii.gz", ".png", ".npy")):
                     os.remove(os.path.join(root, f))
 
 
@@ -1964,7 +2141,8 @@ def run_phases(torch, card, name, bw):
     prostate_run = phase_prostate_path(torch, np, ram_mix, prostate, data_root)
     phase_prostate_path(torch, np, ram_mix, prostate, data_root, bf16_beside=prostate_run)
     phase_prostate_eval_cli(torch, np, data_root)
-    phase_png_tree(torch, np, ram_mix)
+    png_run = phase_png_tree(torch, np, ram_mix)
+    host_runs = phase_host_loader(torch, np, ram_mix, png_run, prostate, data_root)
     det_runs, k2_shapes = phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, data_root)
     k2 = phase_k2(torch, bw, k2_shapes)
     _, variant_launches = phase_variants(torch, np, ram_mix, arrays, testset, prostate, data_root, runs["default"])
@@ -1985,6 +2163,8 @@ def run_phases(torch, card, name, bw):
         # launches: the run at this entry's shape; the fundus variant runs
         # (some at other batches) only in launches_by_run
         variants = variant_launches["fundus"] if run == "default" else {}
+        if run == "ram_use_pallas":  # the host loaders' batches carry donor images: full mode
+            variants = {name: r["k1_launches"] for name, r in host_runs.items()}
         line["kernels"].append({
             "name": f"ram_mix[{label}]", "route": "cuda", "source": SOURCE_REL, "replaces": REPLACES,
             "launches": runs[run]["k1_launches"],

@@ -36,8 +36,8 @@ def stack_fundus_domains(datasets: Sequence, size: int):
     for ds in datasets:
         for entry_line in ds.id_path:
             entry = entry_line.split(" ")
-            imgs.append(_load_resized(os.path.join(ds.base_dir, entry[0]), size, "RGB"))
-            gray = _load_resized(os.path.join(ds.base_dir, entry[1]), size, "L")
+            imgs.append(_load_resized(None, os.path.join(ds.base_dir, entry[0]), size, "RGB"))
+            gray = _load_resized(None, os.path.join(ds.base_dir, entry[1]), size, "L")
             msks.append(fundus_multilabel(gray).astype(np.uint8))
         offsets.append(len(imgs))
     return np.stack(imgs), np.stack(msks), offsets
@@ -51,7 +51,7 @@ def stack_donor_pool(base_dir: str, train_domains: Sequence[str], size: int):
         ids = _read_list(os.path.join(base_dir, d, "train.list"))
         offsets[d] = (len(donors), len(ids))
         for line in ids:
-            donors.append(_load_resized(os.path.join(base_dir, d, line.split(" ")[0]), size, "RGB"))
+            donors.append(_load_resized(None, os.path.join(base_dir, d, line.split(" ")[0]), size, "RGB"))
     return np.stack(donors), offsets
 
 

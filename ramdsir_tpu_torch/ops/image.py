@@ -1,4 +1,5 @@
-"""uint8 image conversions and resizes equal to PIL's, bit for bit.
+"""uint8 image conversions and resizes equal to PIL's, and the training
+augmentation's resizes equal to OpenCV's, bit for bit.
 
 The JAX package reads a fundus image as `Image.open(p).convert(mode)` and
 resizes it with `Image.resize((S, S), BILINEAR)` (images) or `NEAREST`
@@ -16,6 +17,24 @@ port computes the same integers itself:
            whose size does not change is skipped.
   NEAREST  source index floor(x0), x0 = scale/2 + k*scale accumulated by
            repeated addition, as PIL's ImagingScaleAffine tabulates it.
+
+The JAX package's training scale-crop resizes with cv2 where cv2 is
+installed (`ramdsir_tpu/data/transforms.py:541-571`): `INTER_LINEAR` for
+the image, `INTER_NEAREST` for the mask.  `cv_resize` computes OpenCV's
+integers (`imgproc/src/resize.cpp`, measured equal to cv2 5.0.0):
+
+  LINEAR   per axis the source position f = (d + 0.5) * s - 0.5 with
+           s = 1 / (n_out / n_in) in double, rounded to float; weights
+           1 - frac(f) and frac(f) rounded to 11 bits.  Columns are clamped
+           (weight 1 on the edge pixel), rows are not: a row past the edge
+           reads the edge row with its own weight.  The horizontal pass
+           keeps the exact int sums; the vertical pass is the SIMD
+           rounding, ((h0 >> 4) * b0 >> 16) + ((h1 >> 4) * b1 >> 16),
+           then (+ 2) >> 2, for every pixel.  An exact halving of both
+           sides is the 2 x 2 mean, (sum + 2) >> 2, as OpenCV switches to
+           INTER_AREA there.
+  NEAREST  source index floor(d * (1 / (n_out / n_in))), clamped to the
+           last pixel.
 """
 from __future__ import annotations
 
@@ -133,3 +152,59 @@ def resize(arr: np.ndarray, size: Tuple[int, int], resample: str) -> np.ndarray:
     if height != a.shape[0]:
         a = _bilinear_pass(a, 0, height)
     return a
+
+
+RESIZE_COEF_BITS = 11  # OpenCV's INTER_RESIZE_COEF_BITS
+
+
+def cv_linear_coefficients(n_in: int, n_out: int, clamp: bool) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(first source index, its weight, the next index's weight) of OpenCV's
+    INTER_LINEAR from n_in to n_out samples, weights in 11-bit fixed point.
+    clamp=True is the column rule (positions before the first or at or past
+    the last pixel take the edge pixel at weight 1); rows keep their
+    weights and read the edge row (`cv_resize`)."""
+    scale = 1.0 / (n_out / n_in)
+    pos = ((np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    first = np.floor(pos).astype(np.int64)
+    frac = pos - first.astype(np.float32)
+    if clamp:
+        frac = np.where((first < 0) | (first >= n_in - 1), np.float32(0.0), frac)
+        first = np.clip(first, 0, n_in - 1)
+    one = np.float32(1 << RESIZE_COEF_BITS)
+    w0 = np.rint((np.float32(1.0) - frac) * one).astype(np.int32)  # saturate_cast<short>: nearest, ties to even
+    w1 = np.rint(frac * one).astype(np.int32)
+    return first, w0, w1
+
+
+def cv_resize(arr: np.ndarray, size: Tuple[int, int], interpolation: str) -> np.ndarray:
+    """`cv2.resize(arr, size, interpolation=INTER_LINEAR | INTER_NEAREST)`
+    of an (H, W) or (H, W, C) uint8 array; size is cv2's (width, height),
+    interpolation "linear" or "nearest"."""
+    a = np.asarray(arr)
+    if a.dtype != np.uint8 or a.ndim not in (2, 3):
+        raise ValueError(f"cv_resize: uint8 (H, W) or (H, W, C) arrays only, got {a.dtype} {a.shape}")
+    width, height = size
+    if width <= 0 or height <= 0:
+        raise ValueError(f"cv_resize: size {size}")
+    h_in, w_in = a.shape[:2]
+    if (width, height) == (w_in, h_in):
+        return a.copy()
+    if interpolation == "nearest":
+        rows = np.minimum(np.floor(np.arange(height) * (1.0 / (height / h_in))).astype(np.int64), h_in - 1)
+        cols = np.minimum(np.floor(np.arange(width) * (1.0 / (width / w_in))).astype(np.int64), w_in - 1)
+        return a[rows][:, cols]
+    if interpolation != "linear":
+        raise ValueError(f"cv_resize: interpolation {interpolation!r} (only 'linear' and 'nearest')")
+    x = a.astype(np.int32) if a.ndim == 3 else a.astype(np.int32)[..., None]
+    if (w_in, h_in) == (2 * width, 2 * height):
+        total = x[0::2, 0::2] + x[1::2, 0::2] + x[0::2, 1::2] + x[1::2, 1::2]
+        out = (total + 2) >> 2
+    else:
+        sx, a0, a1 = cv_linear_coefficients(w_in, width, clamp=True)
+        hor = x[:, sx] * a0[:, None] + x[:, np.minimum(sx + 1, w_in - 1)] * a1[:, None]
+        sy, b0, b1 = cv_linear_coefficients(h_in, height, clamp=False)
+        top = hor[np.clip(sy, 0, h_in - 1)] >> 4
+        bottom = hor[np.clip(sy + 1, 0, h_in - 1)] >> 4
+        out = (((top * b0[:, None, None]) >> 16) + ((bottom * b1[:, None, None]) >> 16) + 2) >> 2
+    out = np.clip(out, 0, 255).astype(np.uint8)
+    return out if a.ndim == 3 else out[..., 0]

@@ -21,6 +21,22 @@ reaches the schedule's total_iters; the JAX package's loop would run
 `deterministic_mode`: on the card two runs from one seed then give the same
 parameters, statistics, Adam moments and losses bit for bit.
 
+Input paths: the device pipeline (`cfg.device_data`, the default) holds the
+train set on the card and gathers each batch there.  `device_data=False`
+trains from the host loaders (`data/loaders.py`, `cfg.loader` "process" or
+"thread", `cfg.num_workers`, `cfg.prefetch`), which build each step's batch
+on the host, and `HostToDevice` copies it to the card `max(2, prefetch)`
+steps ahead; `fit` stops the loader's workers when it ends, however it
+ends.  The host path writes an "input/" row to metrics.jsonl at each
+epoch's end (medians of the host's wait for the loader and of the copy's
+device time, the epoch's median step, the memory high-water marks), and
+the summary's `host_input`.
+
+Every `cfg.log_images_every` steps (and at step 0) the step returns its
+viz slices; `utils.logging.DeviceVizRing` copies them off the card without
+a synchronise, and at the next eval boundary and at the end `_log_viz`
+writes the reference's image grids as PNGs under log/images/.
+
 `cfg.trace_dir` (--trace_dir) profiles steps 2-12 (`utils.profiler.TraceWindow`)
 into a Chrome trace there.  `cfg.scan_window` is recorded and changes
 nothing: in the JAX package it groups steps into one dispatch with the
@@ -32,8 +48,11 @@ import contextlib
 import dataclasses
 import json
 import os
+import resource
+import statistics
 import time
-from typing import Dict, Optional, Sequence, Union
+from collections import deque
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -42,13 +61,15 @@ import ramdsir_tpu_torch
 from ramdsir_tpu_torch.config import TrainConfig
 from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline, DeviceProstatePipeline
 from ramdsir_tpu_torch.data.fundus import FundusMultiDataset
+from ramdsir_tpu_torch.data.loaders import FusedMultiDomainLoader, ProcessFusedMultiDomainLoader
 from ramdsir_tpu_torch.data.prostate import ProstateMultiDataset
+from ramdsir_tpu_torch.data.transforms import ScaleCropAug
 from ramdsir_tpu_torch.train.checkpoint import BestKeeper, load_checkpoint, save_checkpoint
 from ramdsir_tpu_torch.train.evaluate import append_csv_log, eval_fundus, eval_prostate_volumes
 from ramdsir_tpu_torch.train.state import init_state
 from ramdsir_tpu_torch.train.steps import check_supported, make_predict_fn, make_train_step
 from ramdsir_tpu_torch.utils.device import resolve_device
-from ramdsir_tpu_torch.utils.logging import MetricsWriter
+from ramdsir_tpu_torch.utils.logging import DeviceVizRing, MetricsWriter, decode_seg_map, make_grid
 from ramdsir_tpu_torch.utils.profiler import StepTimer, TraceWindow
 from ramdsir_tpu_torch.utils.torch_compat import export_torch_checkpoint
 
@@ -107,22 +128,159 @@ def deterministic_mode(on: bool):
             os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
 
 
-Pipeline = Union[DeviceFundusPipeline, DeviceProstatePipeline]
+Pipeline = Union[DeviceFundusPipeline, DeviceProstatePipeline, FusedMultiDomainLoader]
 
 
 def build_train_pipeline(cfg: TrainConfig, data_root: str) -> Pipeline:
-    """The fundus PNG tree or the prostate slice tree under data_root, on
-    cfg.device."""
-    kw = dict(
-        is_out_domain=cfg.is_out_domain, seed=cfg.seed,
-        precompute_donor_amp=cfg.ram_precompute_donor_amp and cfg.ram, device=cfg.device,
-    )
+    """The fundus PNG tree or the prostate slice tree under data_root: on
+    cfg.device (the device pipeline), or with cfg.device_data=False behind
+    the host loaders (`ramdsir_tpu/train/loop.py:34-107`): one dataset per
+    source domain, fundus through the decode cache at image_size and the
+    training scale-crop, each sample's draws seeded by its position."""
     bsl = cfg.batch_size_list[: len(cfg.domain_idxs)]
+    if cfg.device_data:
+        kw = dict(
+            is_out_domain=cfg.is_out_domain, seed=cfg.seed,
+            precompute_donor_amp=cfg.ram_precompute_donor_amp and cfg.ram, device=cfg.device,
+        )
+        if cfg.dataset == "prostate":
+            datasets = [ProstateMultiDataset(data_root, [d]) for d in cfg.domain_idxs]
+            return DeviceProstatePipeline.from_tree(datasets, bsl, data_root, cfg.test_domain_idx, **kw)
+        datasets = [FundusMultiDataset(data_root, [d]) for d in cfg.domain_idxs]
+        return DeviceFundusPipeline.from_tree(datasets, bsl, data_root, cfg.image_size, cfg.test_domain_idx, **kw)
+    common = dict(is_freq=cfg.ram, is_out_domain=cfg.is_out_domain, test_domain_idx=cfg.test_domain_idx)
     if cfg.dataset == "prostate":
-        datasets = [ProstateMultiDataset(data_root, [d]) for d in cfg.domain_idxs]
-        return DeviceProstatePipeline.from_tree(datasets, bsl, data_root, cfg.test_domain_idx, **kw)
-    datasets = [FundusMultiDataset(data_root, [d]) for d in cfg.domain_idxs]
-    return DeviceFundusPipeline.from_tree(datasets, bsl, data_root, cfg.image_size, cfg.test_domain_idx, **kw)
+        datasets = [
+            ProstateMultiDataset(data_root, [d], rng=np.random.default_rng(cfg.seed + i), **common)
+            for i, d in enumerate(cfg.domain_idxs)
+        ]
+    else:
+        datasets = [
+            FundusMultiDataset(
+                data_root, [d], np_transform=ScaleCropAug(cfg.image_size), donor_size=cfg.image_size,
+                rng=np.random.default_rng(cfg.seed + i), resize_to=cfg.image_size, **common,
+            )
+            for i, d in enumerate(cfg.domain_idxs)
+        ]
+    keys = ("img", "donor", "mask") if cfg.ram else ("img", "mask")
+    if cfg.loader == "process":
+        return ProcessFusedMultiDomainLoader(datasets, bsl, keys, seed=cfg.seed, num_workers=cfg.num_workers)
+    if cfg.loader != "thread":
+        raise ValueError(f"unknown loader {cfg.loader!r} (use 'process' or 'thread')")
+    return FusedMultiDomainLoader(
+        datasets, bsl, keys, seed=cfg.seed, prefetch=cfg.prefetch + 2, num_workers=cfg.num_workers or 6
+    )
+
+
+class HostToDevice:
+    """One epoch of host batches as tensors on `device`, copied `depth`
+    steps ahead (the JAX package's `_device_stream`,
+    `ramdsir_tpu/train/loop.py:134-155`).
+
+    On a CUDA device each batch is copied into pinned host memory and from
+    there by non_blocking copies on a side stream, so the copy overlaps the
+    steps before it; the compute stream waits on the copy's event before
+    the step that reads the batch, and the pinned batch stays referenced
+    until that step has been queued.  Per batch it records the host's wait
+    for the loader (`wait_ms`) and the copy's device time (`h2d_ms()`, read
+    once the copies are done).  On the CPU the arrays are wrapped as they
+    are."""
+
+    def __init__(self, batches: Iterable[Dict[str, np.ndarray]], device: torch.device, depth: int):
+        self.batches = batches
+        self.device = torch.device(device)
+        self.depth = max(1, depth)
+        self.wait_ms: List[float] = []
+        self._events: List[tuple] = []
+
+    def h2d_ms(self) -> List[float]:
+        out = []
+        for start, end in self._events:
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        return out
+
+    def _next(self, it) -> Optional[Dict[str, np.ndarray]]:
+        """The loader's next batch (None at the epoch's end), timed."""
+        t = time.perf_counter()
+        batch = next(it, None)
+        if batch is not None:
+            self.wait_ms.append(1e3 * (time.perf_counter() - t))
+        return batch
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        it = iter(self.batches)
+        if self.device.type != "cuda":
+            while (batch := self._next(it)) is not None:
+                yield {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+            return
+        compute, side = torch.cuda.current_stream(self.device), torch.cuda.Stream(self.device)
+        pending: deque = deque()
+        exhausted = False
+        while True:
+            while not exhausted and len(pending) < self.depth:
+                batch = self._next(it)
+                if batch is None:
+                    exhausted = True
+                    break
+                pinned = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory() for k, v in batch.items()}
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                with torch.cuda.stream(side):
+                    start.record(side)
+                    dev = {k: v.to(self.device, non_blocking=True) for k, v in pinned.items()}
+                    end.record(side)
+                self._events.append((start, end))
+                pending.append((pinned, dev, end))
+            if not pending:
+                return
+            # `current` holds the pinned batch until the generator resumes,
+            # that is until the step that reads it has been queued
+            current = pending.popleft()
+            compute.wait_event(current[2])
+            for v in current[1].values():
+                v.record_stream(compute)  # the allocator keeps them until the step is done
+            yield current[1]
+
+
+def _log_viz(writer: MetricsWriter, viz: Dict[str, np.ndarray], step: int, cfg: TrainConfig) -> None:
+    """The reference's image grids under its tags (code/train.py:306-329),
+    as the JAX package's `_log_viz` makes them
+    (`ramdsir_tpu/train/loop.py:110-131`)."""
+    img = np.asarray(viz["image"])
+    writer.add_image("train/Image", make_grid(img[..., :3]), step)
+    if "image_freq" in viz:
+        writer.add_image("train/Image_Freq", make_grid(np.asarray(viz["image_freq"])[..., :3]), step)
+    if "image_rec" in viz:
+        writer.add_image("train/Image_Rec", make_grid(np.asarray(viz["image_rec"])[..., :3]), step)
+    pred = np.asarray(viz["pred"])
+    mask = np.asarray(viz["mask"])
+    if cfg.dataset == "fundus":
+        writer.add_image("train/Soft_Predicted_OC", make_grid(pred[..., 0]), step)
+        writer.add_image("train/Soft_Predicted_OD", make_grid(pred[..., 1]), step)
+        writer.add_image("train/GT_OC", make_grid(mask[..., 0], normalize=False), step)
+        writer.add_image("train/GT_OD", make_grid(mask[..., 1], normalize=False), step)
+    else:
+        pred_lbl = np.stack([decode_seg_map(p) for p in pred.argmax(-1)])
+        gt_lbl = np.stack([decode_seg_map(m) for m in mask])
+        writer.add_image("train/Predicted", make_grid(pred_lbl, normalize=False), step)
+        writer.add_image("train/GT", make_grid(gt_lbl, normalize=False), step)
+
+
+def _input_row(stream: HostToDevice, step_seconds: Sequence[float], batch: int, device: torch.device) -> Dict:
+    """One epoch of the host path: the host's median wait for the loader,
+    the epoch's median step and img/s (steps after the timer's warm-up),
+    the training process's peak RSS so far and, on a card, the copies'
+    median device time a step and the peak device memory so far."""
+    med = lambda xs: statistics.median(xs) if xs else 0.0
+    row = {
+        "host_wait_ms": med(stream.wait_ms),
+        "median_step_ms": 1e3 * med(step_seconds),
+        "images_per_sec": batch * len(step_seconds) / sum(step_seconds) if step_seconds else 0.0,
+        "host_peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+    }
+    if device.type == "cuda":
+        row.update(h2d_ms=med(stream.h2d_ms()), device_peak_bytes=torch.cuda.max_memory_allocated(device))
+    return row
 
 
 def evaluate_target(cfg: TrainConfig, predict, testset, epoch: int, save_dir: str):
@@ -154,8 +312,6 @@ def fit(
     prostate (name, image, mask) volumes."""
     cfg = cfg.resolve()
     check_supported(cfg)
-    if not cfg.device_data:
-        raise NotImplementedError("device_data=False is not ported yet (ROADMAP.md: host loaders)")
     device = resolve_device(cfg.device)
     with deterministic_mode(cfg.deterministic):
         if cfg.deterministic:
@@ -168,6 +324,14 @@ def _fit(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset) -> 
     save_run_config(save_dir, cfg)
     if pipeline is None:
         pipeline = build_train_pipeline(cfg, os.path.join(cfg.data_root, cfg.dataset))
+    try:
+        return _train(cfg, device, eval_every, max_steps, pipeline, testset, save_dir)
+    finally:
+        getattr(pipeline, "shutdown", lambda: None)()  # the process loader's workers
+
+
+def _train(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset, save_dir) -> Dict:
+    device_data = getattr(pipeline, "device_data", None)  # None: the host loaders
     steps_per_epoch = len(pipeline)
     total_iters = steps_per_epoch * cfg.epochs
     b_real = sum(pipeline.batch_sizes)
@@ -177,14 +341,15 @@ def _fit(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset) -> 
     if cfg.checkpoint_resume:
         load_checkpoint(cfg.checkpoint_resume, state)
         print(f"resumed from {cfg.checkpoint_resume} at step {state.step}", flush=True)
-    train_step = make_train_step(
-        cfg, total_iters, batch_size_list=pipeline.batch_sizes, device_data=pipeline.device_data
-    )
+    train_step = make_train_step(cfg, total_iters, batch_size_list=pipeline.batch_sizes, device_data=device_data)
     predict = make_predict_fn(cfg, state.models, bn_adapt=False)
     writer = MetricsWriter(os.path.join(save_dir, "log"))
     keeper = BestKeeper(save_dir)
     timer = StepTimer(device=device)
     tracer = TraceWindow(cfg.trace_dir, device) if cfg.trace_dir else None
+    vizring = DeviceVizRing()
+    log_viz = lambda viz, s: _log_viz(writer, viz, s, cfg)
+    host_rows: List[Dict] = []
     summary: Dict = {}
 
     step = state.step
@@ -192,10 +357,15 @@ def _fit(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset) -> 
     epoch = 0
     while epoch < cfg.epochs and step < total_iters and not done:
         t_ep = time.time()
-        for row in pipeline:
+        stream = None if device_data is not None else HostToDevice(pipeline, device, max(2, cfg.prefetch))
+        first_timed = len(timer.step_seconds)
+        for row in stream or pipeline:
             if tracer:
                 tracer.before_step(step)
-            metrics = train_step(state, row, generator)
+            log_images = bool(cfg.log_images_every) and step % cfg.log_images_every == 0
+            metrics = train_step(state, row, generator, viz=log_images)
+            if log_images:
+                vizring.append(step, metrics.pop("_viz"))
             lr = float(metrics.pop("lr"))
             names = list(metrics)
             values = torch.stack([metrics[k] for k in names]).tolist()  # one device sync
@@ -211,10 +381,14 @@ def _fit(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset) -> 
                 break
             if step >= total_iters:  # a resumed run ends with the schedule
                 break
+        if stream is not None:
+            host_rows.append(_input_row(stream, timer.step_seconds[first_timed:], b_real, device))
+            writer.add_scalars({"epoch": epoch, **host_rows[-1]}, step, prefix="input/")
         if (epoch + 1) % eval_every == 0 or done:
             timer.mark()
             writer.flush()
             with timer.paused():
+                vizring.flush(log_viz)
                 avg, fields = evaluate_target(cfg, predict, testset, epoch, save_dir)
                 summary.update(fields)
                 writer.add_scalars({"eval/avg_dice": avg}, step)
@@ -227,6 +401,7 @@ def _fit(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset) -> 
         epoch += 1
 
     timer.mark()
+    vizring.flush(log_viz)
     if tracer:
         tracer.close()  # a run that ended before the window's last step
         summary["trace"] = tracer.path
@@ -240,4 +415,9 @@ def _fit(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset) -> 
         images_per_sec=timer.items_per_sec, median_step_ms=timer.median_step_ms,
         final_checkpoint=final_path, resume_checkpoint=resume_path,
     )
+    if host_rows:
+        summary["host_input"] = dict(
+            loader=cfg.loader, epochs=len(host_rows),
+            **{k: statistics.median(r[k] for r in host_rows) for k in ("host_wait_ms", "h2d_ms") if k in host_rows[0]},
+        )
     return summary

@@ -41,7 +41,16 @@ pipeline, the scale-crop's apply/factor/offset draws) comes from
 draws instead (the tests pass the numbers the JAX functions drew).
 
 Layout: batch dicts are NHWC as in the JAX package; the step works on NCHW
-from the encoder on.
+from the encoder on.  The host loaders' fundus batches arrive as uint8
+(img, donor, mask) and are promoted to float32 on the device, which is
+exact; a prostate host batch is float32 img and donor and an integer mask.
+
+Image grids: `train_step(..., viz=True)` (the loop asks at the steps that
+log them, every `log_images_every`) also returns the JAX package's viz
+slices under "_viz", NHWC: `image`, `image_freq` (batch[0:9:4]), `pred`
+as probabilities of every class, `mask`, and `image_rec`, the first
+restoration sample of each of the first three domains
+(`ramdsir_tpu/train/steps.py:380-397`).  Other steps compute none of it.
 
 Precision (`--compute_dtype`): RAM, and with it K1, runs in float32; only
 the encoder's input is cast to the compute dtype, so the U-Net's activations
@@ -123,11 +132,11 @@ def make_train_step(
     device_data: Optional[Mapping[str, torch.Tensor]] = None,
     debug_grads: bool = False,
 ) -> Callable:
-    """Build `train_step(state, batch, generator=None, draws=None) -> metrics`.
+    """Build `train_step(state, batch, generator=None, draws=None, viz=False) -> metrics`.
 
-    batch (NHWC), fundus: img (B,H,W,3) float [0,255], mask (B,H,W,2) float,
-    and either donor_amp (B,2b+1,b+1,3) banded donor amplitudes or donor
-    (B,H,W,3) [0,255] donor images.  Prostate: img and donor in [-1, 1],
+    batch (NHWC), fundus: img (B,H,W,3) [0,255], mask (B,H,W,2), float or
+    uint8, and either donor_amp (B,2b+1,b+1,3) banded donor amplitudes or
+    donor (B,H,W,3) [0,255] donor images.  Prostate: img and donor in [-1, 1],
     mask (B,H,W) integer labels.  With `device_data` (the device pipeline's
     arrays) batch is instead {img_idx, donor_idx} index rows, and the step
     gathers (and for fundus scale-crops) on the device.
@@ -205,8 +214,18 @@ def make_train_step(
 
     sup_tag = "loss_bce" if is_fundus else "loss_ce"
 
-    def loss_fn(state: TrainState, batch, draws):
+    def viz_probs(repr1: torch.Tensor, hw) -> torch.Tensor:
+        """The head's repr as (n, H, W, C) probabilities."""
+        if is_fundus:
+            return repr1.permute(0, 2, 3, 1)
+        if binary_head:
+            l = repr1.reshape(repr1.shape[0], *hw)
+            return torch.stack([torch.sigmoid(-l), torch.sigmoid(l)], dim=-1)
+        return repr1
+
+    def loss_fn(state: TrainState, batch, draws, want_viz: bool = False):
         metrics: Dict[str, torch.Tensor] = {}
+        viz: Dict[str, torch.Tensor] = {}
         if cfg.ram:
             if "donor_amp" in batch:
                 aug = ram_augment_fundus_banded if is_fundus else ram_augment_prostate_banded
@@ -248,6 +267,9 @@ def make_train_step(
                 loss_rec_d = rec_weights(rec_soft[:b_real].shape, img.device) @ per_row
                 avg_rec = torch.sum(loss_rec_d)
                 loss = loss + cfg.lambda_rec * avg_rec
+                if want_viz:
+                    firsts = np.cumsum([0] + bsl[:-1])[:3]  # each domain's first row
+                    viz["image_rec"] = rec_soft[firsts].permute(0, 2, 3, 1)
             metrics.update({
                 f"{sup_tag}_2": loss_sup2,
                 "loss_dice_2": loss_dice2,
@@ -255,13 +277,19 @@ def make_train_step(
                 "loss_rec": avg_rec / 4.0,  # the reference logs avg_rec_loss/4
             })
         metrics["loss"] = loss
-        return loss, metrics
+        if want_viz:
+            viz.update(image=img[0:9:4].permute(0, 2, 3, 1), pred=viz_probs(pred1[0:9:4], mask.shape[-2:]),
+                       mask=(mask.permute(0, 2, 3, 1) if is_fundus else mask)[0:9:4])
+            if cfg.ram:
+                viz["image_freq"] = img_freq[0:9:4]
+        return loss, metrics, {k: v.detach() for k, v in viz.items()}
 
     def train_step(
         state: TrainState,
         batch: Mapping,
         generator: Optional[torch.Generator] = None,
         draws: Optional[Mapping[str, torch.Tensor]] = None,
+        viz: bool = False,
     ) -> Dict:
         device = next(state.models["encoder"].parameters()).device
         if draws is None:
@@ -274,11 +302,13 @@ def make_train_step(
                 batch = gather_and_augment(device_data, idx["img_idx"], idx["donor_idx"], draws, cfg.image_size)
             else:
                 batch = gather_prostate(device_data, idx["img_idx"], idx["donor_idx"])
+        elif is_fundus:  # a host batch: uint8 on the wire
+            batch = {k: v.float() if v.dtype == torch.uint8 else v for k, v in batch.items()}
         for m in state.models.values():
             m.train()
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(state, batch, draws)
+        loss, metrics, viz_slices = loss_fn(state, batch, draws, viz)
         loss.backward()
         if debug_grads:
             metrics["_grads"] = {
@@ -292,6 +322,8 @@ def make_train_step(
         state.step += 1
         metrics = {k: (v if k == "_grads" else v.detach()) for k, v in metrics.items()}
         metrics["lr"] = torch.tensor(lr)
+        if viz:
+            metrics["_viz"] = viz_slices
         return metrics
 
     return train_step

@@ -1,20 +1,67 @@
-"""Scalar metrics as JSON lines (PyTorch port of
-`ramdsir_tpu/utils/logging.py:39-84`).
+"""Scalar metrics as JSON lines and the training image grids as PNGs
+(PyTorch port of `ramdsir_tpu/utils/logging.py:22-89` and `:173-257`).
 
 Tags are the reference's SummaryWriter tags (code/train.py:298-329), so
-curves compare with the JAX package's `metrics.jsonl`.  TensorBoard event
-files and image grids are not written.
+curves compare with the JAX package's `metrics.jsonl`.  The card has no
+tensorboard: an image goes to `log/images/<tag, "/" -> "_">/<step>.png`,
+written by the port's PNG encoder with the pixels tensorboardX's
+`add_image` would store (a float grid in [0, 1] times 255, truncated to
+uint8; one channel as RGB).
 """
 from __future__ import annotations
 
 import json
 import os
 import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ramdsir_tpu_torch.data import png
+
+
+def make_grid(images: np.ndarray, ncols: int = 3, normalize: bool = True) -> np.ndarray:
+    """(N, H, W[, C]) -> (rows * H, ncols * W, C) float32 tiles, min-max
+    normalised over the whole batch unless normalize=False."""
+    images = np.asarray(images, np.float32)
+    if images.ndim == 3:
+        images = images[..., None]
+    n, h, w, c = images.shape
+    if normalize:
+        lo, hi = images.min(), images.max()
+        images = (images - lo) / max(hi - lo, 1e-12)
+    nrows = -(-n // ncols)
+    grid = np.zeros((nrows * h, ncols * w, c), np.float32)
+    for i in range(n):
+        r, col = divmod(i, ncols)
+        grid[r * h : (r + 1) * h, col * w : (col + 1) * w] = images[i]
+    return grid
+
+
+# the prostate label maps' colours (the JAX package's small fixed palette)
+_PALETTE = np.array([[0, 0, 0], [128, 0, 0], [0, 128, 0], [128, 128, 0], [0, 0, 128]], np.float32) / 255.0
+
+
+def decode_seg_map(label_mask: np.ndarray, num_classes: int = 5) -> np.ndarray:
+    """(H, W) int labels -> (H, W, 3) float RGB."""
+    return _PALETTE[np.asarray(label_mask).astype(int) % num_classes]
+
+
+def image_to_uint8(image_hwc: np.ndarray) -> np.ndarray:
+    """An (H, W, C) image as tensorboardX's add_image stores it: uint8 as it
+    is, any other dtype times 255 and truncated; one channel repeated to
+    RGB."""
+    img = np.asarray(image_hwc)
+    if img.dtype != np.uint8:
+        img = (img * 255.0).astype(np.uint8)
+    return np.repeat(img, 3, axis=-1) if img.shape[-1] == 1 else img
 
 
 class MetricsWriter:
     def __init__(self, log_dir: str):
         os.makedirs(log_dir, exist_ok=True)
+        self.log_dir = log_dir
         self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
         self._t0 = time.time()
 
@@ -23,8 +70,55 @@ class MetricsWriter:
         rec.update({prefix + k: float(v) for k, v in metrics.items()})
         self._jsonl.write(json.dumps(rec) + "\n")
 
+    def image_path(self, tag: str, step: int) -> str:
+        return os.path.join(self.log_dir, "images", tag.replace("/", "_"), f"{step}.png")
+
+    def add_image(self, tag: str, image_hwc: np.ndarray, step: int) -> str:
+        """Write `image_hwc` (H, W, C) as a PNG; returns its path."""
+        path = self.image_path(tag, step)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        return png.write(path, image_to_uint8(image_hwc))
+
     def flush(self) -> None:
         self._jsonl.flush()
 
     def close(self) -> None:
         self._jsonl.close()
+
+
+class DeviceVizRing:
+    """The logged steps' image-grid inputs, held until `flush` (at an eval
+    boundary and at the end of training), so that no log step waits for
+    the card.  `append` queues a copy of each tensor into pinned host
+    memory on the current stream and records an event; `flush` waits for
+    the events and hands each step's arrays to `log_fn(viz, step)`.  The
+    JAX package quantises the grids to uint8 on the device for a slow
+    relay link; the port keeps them float32, so its grids are `_log_viz`'s
+    of the unquantised arrays.  At most `cap` steps are held, the newest."""
+
+    def __init__(self, cap: int = 32):
+        self.cap = cap
+        self._slots: List[Tuple[int, Dict[str, torch.Tensor], Optional[torch.cuda.Event]]] = []
+
+    def append(self, step: int, viz: Dict[str, torch.Tensor]) -> None:
+        host, event = {}, None
+        for k, v in viz.items():
+            v = v.detach()
+            if v.is_cuda:
+                host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                host[k].copy_(v, non_blocking=True)
+            else:
+                host[k] = v.clone()
+        if any(v.is_cuda for v in viz.values()):
+            event = torch.cuda.Event()
+            event.record()
+        if len(self._slots) >= self.cap:
+            self._slots.pop(0)
+        self._slots.append((step, host, event))
+
+    def flush(self, log_fn: Callable[[Dict[str, np.ndarray], int], None]) -> None:
+        for step, host, event in self._slots:
+            if event is not None:
+                event.synchronize()
+            log_fn({k: v.numpy() for k, v in host.items()}, step)
+        self._slots.clear()

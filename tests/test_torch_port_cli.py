@@ -341,7 +341,8 @@ names = [m.name for m in pkgutil.walk_packages(ramdsir_tpu_torch.__path__, "ramd
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "ramdsir_tpu", "PIL", "cv2"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "ramdsir_tpu", "PIL", "cv2",
+                                    "tensorboard", "tensorboardX"))
 print(names)
 print(bad)
 """
@@ -352,7 +353,7 @@ print(bad)
     for new in ("native", "ops.metrics", "ops.postprocess", "ops.resize", "data.loaders", "train.evaluate",
                 "train.checkpoint", "utils.viz", "cli.test_fundus_slice", "data.nifti", "data.prostate",
                 "cli.test_prostate_volume", "utils.msgpack", "data.png", "ops.image", "ops.upsample",
-                "ops.cuda_build", "utils.profiler", "models.norm"):
+                "ops.cuda_build", "utils.profiler", "models.norm", "data.transforms", "utils.logging"):
         assert f"ramdsir_tpu_torch.{new}" in names, new
     assert bad == [], bad
 

@@ -1,8 +1,9 @@
 """K1 and K2 on the card against their plain versions, the eval path on
 the card against the CPU, a bfloat16 step through K1, a `.ckpt` round trip
 of a card state, deterministic steps that repeat bit for bit, the GN / IN
-forwards against the CPU and --remat bit-equal to no remat (marker `cuda`;
-skipped without a card).
+forwards against the CPU, --remat bit-equal to no remat, and the host input
+path on the card: the host-to-device stream, the viz ring, `fit` on the
+host loaders (marker `cuda`; skipped without a card).
 
 These tests import neither JAX nor the JAX package, so they also run where
 JAX is not installed; the root conftest.py imports JAX, so run them there
@@ -412,3 +413,94 @@ def test_remat_on_card_is_bit_equal_under_deterministic(gen):
     for p, q in zip(pa, pb):
         sa, sb = a.optimizer.state[p], b.optimizer.state[q]
         assert sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def _host_batches(n, seed=0):
+    """Fundus-like host batches as the loaders give them: uint8 img, donor
+    and mask at 16 x 256^2."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [{"img": rng.integers(0, 256, (16, 256, 256, 3), dtype=np.uint8),
+             "donor": rng.integers(0, 256, (16, 256, 256, 3), dtype=np.uint8),
+             "mask": rng.integers(0, 2, (16, 256, 256, 2), dtype=np.uint8)} for _ in range(n)]
+
+
+def test_host_to_device_stream_copies_beside_the_compute_stream(gen):
+    """HostToDevice yields each host batch's values on the card with no
+    synchronise in the iteration (torch's sync debug mode raises on one),
+    and its copies run on a stream of their own: with the compute stream
+    held busy, the next batch's copy completes meanwhile."""
+    from ramdsir_tpu_torch.train.loop import HostToDevice
+
+    batches = _host_batches(5)
+    stream = HostToDevice(batches, torch.device("cuda"), depth=2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        it = iter(stream)
+        got = [next(it)]
+        torch.cuda._sleep(int(2e9))  # about a second of the compute stream
+        busy = torch.cuda.Event()
+        busy.record()
+        got.append(next(it))  # queues the third batch's copy
+        torch.cuda.set_sync_debug_mode(0)
+        stream._events[2][1].synchronize()
+        assert not busy.query(), "the copy waited for the compute stream"
+        torch.cuda.set_sync_debug_mode("error")
+        got += list(it)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(got) == 5 and len(stream.wait_ms) == 5 and len(stream.h2d_ms()) == 5
+    for g, b in zip(got, batches):
+        assert set(g) == set(b)
+        for k, v in b.items():
+            assert g[k].is_cuda and g[k].dtype == torch.uint8
+            assert torch.equal(g[k].cpu(), torch.from_numpy(v)), k
+
+
+def test_viz_ring_append_does_not_synchronise(gen):
+    from ramdsir_tpu_torch.utils.logging import DeviceVizRing
+
+    viz = {"image": torch.rand((3, 64, 64, 3), generator=gen, device="cuda"),
+           "mask": torch.randint(0, 2, (3, 64, 64), generator=gen, device="cuda", dtype=torch.int32)}
+    ring, got = DeviceVizRing(), []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ring.append(7, viz)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ring.flush(lambda v, s: got.append((v, s)))
+    assert len(got) == 1 and got[0][1] == 7
+    for k, v in viz.items():
+        assert torch.equal(torch.from_numpy(got[0][0][k]), v.cpu()), k
+
+
+@pytest.mark.parametrize("loader", ["thread", "process"])
+def test_fit_on_host_loaders_on_card(gen, tmp_path, loader):
+    """fit(device_data=False) on the card: two steps from a small PNG tree,
+    one K1 launch (full mode) a step, finite losses, the copies' time in
+    the epoch's input row, the image grids of step 0."""
+    import json
+    import math
+    import os
+
+    from ramdsir_tpu_torch.config import TrainConfig
+    from ramdsir_tpu_torch.data.synthetic import make_fundus_tree
+    from ramdsir_tpu_torch.train.loop import fit
+
+    make_fundus_tree(str(tmp_path / "data"), per_domain_train=8, per_domain_test=2, size=80)
+    cfg = TrainConfig(data_root=str(tmp_path / "data"), dataset="fundus", domain_idxs=(1, 2, 3), test_domain_idx=0,
+                      image_size=64, is_out_domain=True, epochs=1, save_path=str(tmp_path / "run"), device="cuda",
+                      device_data=False, loader=loader, num_workers=2, test_batch_size=2)
+    ram_mix.launches = 0
+    ram_mix.launches_by_path.update(dict.fromkeys(ram_mix.launches_by_path, 0))
+    summary = fit(cfg, max_steps=2)
+    assert summary["steps"] == 2 and ram_mix.launches == 2 and ram_mix.launches_by_path["full_vec"] == 2
+    rows = [json.loads(line) for line in open(os.path.join(cfg.save_path, "log", "metrics.jsonl"))]
+    losses = [v for r in rows for k, v in r.items() if k.startswith("loss/")]
+    assert len(losses) == 14 and all(math.isfinite(v) for v in losses)
+    (inp,) = [r for r in rows if "input/h2d_ms" in r]
+    assert inp["input/h2d_ms"] > 0 and inp["input/device_peak_bytes"] > 0
+    assert len(os.listdir(os.path.join(cfg.save_path, "log", "images"))) == 7

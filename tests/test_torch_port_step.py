@@ -4,9 +4,10 @@ Both sides start from the same weights (the JAX `init_state`, carried over
 by the port's `jax_params_to_torch`), take the same numpy batches, and the
 port is handed the RAM ratios the JAX step drew from its key.  One step is
 compared in the default configuration (banded-DFT RAM with precomputed
-donor bands) and with `ram_use_pallas` (full-spectrum RAM; the JAX side runs
-the Pallas kernel in interpret mode); a 3-step trajectory in the default
-one.  The device pipeline is in tests/test_torch_port_pipeline.py.
+donor bands), with `ram_use_pallas` (full-spectrum RAM; the JAX side runs
+the Pallas kernel in interpret mode) and with donor images and no Pallas
+(the host loaders' batch: the JAX side mixes with its plain `_mix_spectrum`,
+the port with K1 in full mode); a 3-step trajectory in the default one.  The device pipeline is in tests/test_torch_port_pipeline.py.
 """
 import numpy as np
 import jax
@@ -39,13 +40,16 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _batch(seed, pallas):
+MODES = ("banded_dft", "ram_use_pallas", "donor_plain")  # donor bands, donor images with / without Pallas
+
+
+def _batch(seed, donor_images):
     rng = np.random.default_rng(seed)
     img = rng.uniform(0, 255, (B, HW, HW, 3)).astype(np.float32)
     donor = rng.uniform(0, 255, (B, HW, HW, 3)).astype(np.float32)
     mask = (rng.uniform(size=(B, HW, HW, 2)) > 0.5).astype(np.float32)
     batch = {"img": img, "mask": mask}
-    if pallas:
+    if donor_images:
         batch["donor"] = donor
     else:
         batch["donor_amp"] = np.array(banded_amplitude_spectrum(jnp.asarray(donor)))
@@ -79,18 +83,19 @@ def _snapshot(jstate, tstate):
     )
 
 
-def _run_both(jax_init, pallas, steps, total_iters=10):
+def _run_both(jax_init, mode, steps, total_iters=10):
     """`steps` steps on both sides; metrics per step, parameters and
     running statistics after the first and the last step."""
     jstate, models = jax_init
+    pallas = mode == "ram_use_pallas"
     jcfg = JConfig(**CFG, device_data=False, ram_use_pallas=pallas).resolve()
     tcfg = TrainConfig(**CFG, ram_use_pallas=pallas, device="cpu").resolve()
     jstep = jmake_train_step(jcfg, models, total_iters=total_iters, batch_size_list=BSL, debug_grads=True)
     tstep = make_train_step(tcfg, total_iters=total_iters, batch_size_list=BSL, debug_grads=True)
     tstate = _port_state(tcfg, jstate)
-    out = {"jax": [], "port": [], "params": [], "cfg": tcfg, "state0": _torch_layout(jstate.params)}
+    out = {"jax": [], "port": [], "params": [], "cfg": tcfg, "state0": _torch_layout(jstate.params), "mode": mode}
     for i in range(steps):
-        batch = _batch(100 + i, pallas)
+        batch = _batch(100 + i, mode != "banded_dft")
         key = jax.random.PRNGKey(11 + i)
         jstate, jm, _ = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()}, key)
         ratio = torch.from_numpy(np.asarray(sample_ram_ratios(key, B)))
@@ -106,25 +111,25 @@ def _run_both(jax_init, pallas, steps, total_iters=10):
 @pytest.fixture(scope="module")
 def runs(jax_init):
     """Lazily run each configuration once: the default one for 3 steps (its
-    first step is the one-step comparison), ram_use_pallas for 1."""
+    first step is the one-step comparison), the others for 1."""
     done = {}
 
-    def get(pallas):
-        if pallas not in done:
-            done[pallas] = _run_both(jax_init, pallas, steps=1 if pallas else 3)
-        return done[pallas]
+    def get(mode):
+        if mode not in done:
+            done[mode] = _run_both(jax_init, mode, steps=3 if mode == "banded_dft" else 1)
+        return done[mode]
 
     return get
 
 
-@pytest.fixture(scope="module", params=[False, True], ids=["banded_dft", "ram_use_pallas"])
+@pytest.fixture(scope="module", params=MODES)
 def one_step(request, runs):
     return runs(request.param)
 
 
 @pytest.fixture(scope="module")
 def trajectory(runs):
-    return runs(False)
+    return runs("banded_dft")
 
 
 METRICS = ("loss_bce_1", "loss_dice_1", "loss_bce_2", "loss_dice_2", "loss_consistency", "loss_rec", "loss", "lr")
@@ -178,8 +183,47 @@ def test_step_metrics(one_step):
     assert one_step["steps_taken"] == len(one_step["port"])
 
 
-def test_step_gradients(one_step):
-    check_step_gradients(one_step["jax"][0]["_grads"], one_step["port"][0]["_grads"])
+def check_gradients_within_jax_spread(jax_grads, port_grads, jax_pallas_grads):
+    """check_step_gradients' rule for a step with donor images that JAX
+    mixes with its plain `_mix_spectrum` (|z| by jnp.abs).  A tensor past
+    the rule passes only where JAX's own Pallas mix of the same batch and
+    key (|z| as sqrt(re^2 + im^2), which K1 computes too; the callable
+    `jax_pallas_grads` gives its gradients) parts from the plain one past
+    it as well, and the port's stray share and largest error lie within
+    twice that spread; the cosine of the rule holds unrelaxed."""
+    try:
+        check_step_gradients(jax_grads, port_grads)
+        return
+    except AssertionError as e:
+        broken = str(e)
+    jg, jpallas = _torch_layout(jax_grads), _torch_layout(jax_pallas_grads())
+    dots = norm_a = norm_b = 0.0
+    for name in NAMES:
+        for k, want in jg[name].items():
+            got = port_grads[name][k].numpy()
+            tol = 3e-4 + 2e-2 * np.abs(want).max()
+            err, spread = np.abs(got - want), np.abs(jpallas[name][k] - want)
+            frac, worst = float(np.mean(err > tol)), float(err.max() / tol)
+            sfrac, sworst = float(np.mean(spread > tol)), float(spread.max() / tol)
+            assert (frac <= 1e-4 and worst <= 5) or (frac <= 2 * sfrac and worst <= 2 * sworst), (
+                f"{name}.{k}: stray share {frac:.2e}, max {worst:.2f} tol; JAX's own spread {sfrac:.2e}, "
+                f"{sworst:.2f} tol ({broken})")
+            dots += float(np.sum(got.astype(np.float64) * want))
+            norm_a += float(np.sum(got.astype(np.float64) ** 2))
+            norm_b += float(np.sum(want.astype(np.float64) ** 2))
+    assert dots / np.sqrt(norm_a * norm_b) > 0.9999
+
+
+def test_step_gradients(one_step, runs):
+    """check_step_gradients' rule; with donor images and JAX's plain mix,
+    check_gradients_within_jax_spread (on this batch the 1x1 conv
+    rec_decoder.convu3.conv2.weight, 4096 elements, has one element past
+    the rule between JAX's two mixes)."""
+    jax_grads, port_grads = one_step["jax"][0]["_grads"], one_step["port"][0]["_grads"]
+    if one_step["mode"] == "donor_plain":
+        check_gradients_within_jax_spread(jax_grads, port_grads, lambda: runs("ram_use_pallas")["jax"][0]["_grads"])
+    else:
+        check_step_gradients(jax_grads, port_grads)
 
 
 def test_step_params_and_running_stats(one_step):
