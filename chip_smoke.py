@@ -143,9 +143,26 @@ result line):
               bit-equal in the warm-up steps; the two loader kinds' first
               batches equal for one seed; a card step on a host batch
               against the CPU step (TF32 off) within step_parity's bounds
+  ddp         data-parallel training (`--num_devices` > 1) on the one card,
+              each world a `parallel.distributed.launch` of spawned ranks:
+              fundus at the reference configuration over 1 NCCL rank, over 2
+              gloo ranks sharing cuda:0 (rows 8 + 8, domain 1 on both),
+              then twice more under --deterministic, and prostate over 3
+              gloo ranks (batch 10 padded to 12: 4 + 4 + 2 real rows).  Each
+              launch's step 0 against the single-process step from the same
+              state and draws (TF32 off) within step_parity's bounds; each
+              run a `fit` of 10 steps (prostate 4) with one eval on rank 0,
+              K1 once a step on every rank and bit-equal in the warm-up
+              steps, the replicas bit-equal at the end (all-reduces MAX and
+              MIN of every parameter and buffer), the two deterministic runs
+              bit-equal; the median step, global img/s, each rank's peak
+              memory, the gradient all-reduce (CUDA events) and all
+              all-reduces' host time a step.  Ranks sharing one card: no
+              figure is a multi-GPU speed
 Then the card line from nvidia-smi, the kernels line (K1 per mode and at
-the prostate shape, the variant runs' launches added to the band-delta
-entries by run and the host-loader runs' to the full entry; K2 summed over a deterministic step's 8 launches for each
+the prostate shape, the variant and ddp runs' launches (per rank) added to
+the band-delta entries by run and the host-loader runs' to the full entry;
+K2 summed over a deterministic step's 8 launches for each
 run, and at the largest shape), and the result line.
 Run artefacts go to chiprun_out/chip_smoke/ (prostate: chip_smoke/prostate/);
 the .pth and .ckpt files, the NIfTI volumes, the PNGs and the .npy slices are
@@ -1990,6 +2007,246 @@ def phase_variants(torch, np, ram_mix, arrays, testset, prostate, prostate_root,
     return out, launches
 
 
+# --- ddp: data-parallel training over several ranks on the one card --------------
+
+DDP_OUT = os.path.join(OUT, "ddp")
+DDP_STEPS, DDP_PROSTATE_STEPS, DDP_PROSTATE_SLICES = 10, 4, 8  # prostate: 8 slices a domain, one epoch
+DDP_VARIANTS = {"deterministic": {"deterministic": True}, "deterministic_again": {"deterministic": True}}
+
+
+def state_digest(torch, state):
+    """sha256 of every parameter, buffer and Adam moment, and the step."""
+    import hashlib
+
+    h = hashlib.sha256(str(state.step).encode())
+    for m in state.models.values():
+        for t in m.state_dict().values():
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    for st in state.optimizer.state.values():
+        for k in sorted(st):
+            h.update(torch.as_tensor(st[k]).detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def ddp_pipe(cfg, data, device):
+    from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline, DeviceProstatePipeline
+
+    if cfg.dataset == "prostate":
+        return DeviceProstatePipeline.from_arrays(data, cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx,
+                                                  seed=cfg.seed, device=device)
+    return DeviceFundusPipeline.from_arrays(data, cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx,
+                                            is_out_domain=True, seed=cfg.seed,
+                                            precompute_donor_amp=cfg.ram_precompute_donor_amp, device=device)
+
+
+def ddp_rank(rank, device, job):
+    """One rank of a ddp launch: step 0 from the seed's state on this rank's
+    rows (TF32 off), then each of job's runs, a `fit` of job's steps with K1
+    held to its plain version in the two untimed warm-up steps, the
+    gradient all-reduce timed with CUDA events and every all-reduce counted
+    and timed on the host; after each run the replicas' spread, the largest
+    elementwise max - min over the ranks of every parameter and buffer
+    (all-reduces MAX and MIN: 0 when they are bit-equal)."""
+    import dataclasses
+
+    import torch
+
+    from ramdsir_tpu_torch.ops import ram_mix
+    from ramdsir_tpu_torch.train import loop
+    from ramdsir_tpu_torch.train import steps as train_steps
+
+    dist = torch.distributed
+    cfg = dataclasses.replace(job["cfg"], device=str(device))
+    on_card = torch.device(device).type == "cuda"
+    pipe = ddp_pipe(cfg, job["data"], device)
+    draws = {k: torch.from_numpy(v).to(device) for k, v in job["draws"].items()}
+    with exact_float32(torch):
+        metrics, sd, k1 = step_from_seed(torch, ram_mix, cfg, pipe, job["row"], draws, device=device)
+    out = {"rank": rank, "step0": {"metrics": metrics, "k1_launches": k1}, "runs": {}}
+    if rank == 0:
+        out["step0"]["state"] = {k: v.cpu().numpy() for k, v in sd.items()}
+    for run, variant in job["runs"]:
+        rcfg = dataclasses.replace(cfg, save_path=os.path.join(DDP_OUT, run), **variant)
+        pipe = ddp_pipe(rcfg, job["data"], device)
+        captured, grad_events, host = {}, [], {"n": 0, "s": 0.0}
+        real_init, real_grads, real_all_reduce = loop.init_state, train_steps.all_reduce_grads, dist.all_reduce
+
+        def capture(*a, **k):
+            captured["state"] = loop_state = real_init(*a, **k)
+            return loop_state
+
+        def timed_grads(models):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if on_card else None
+            if ev:
+                ev[0].record()
+            real_grads(models)
+            if ev:
+                ev[1].record()
+                grad_events.append(ev)
+
+        def counted(*a, **k):
+            t = time.perf_counter()
+            try:
+                return real_all_reduce(*a, **k)
+            finally:
+                host["n"] += 1
+                host["s"] += time.perf_counter() - t
+
+        if rank == 0:
+            shutil.rmtree(rcfg.save_path, ignore_errors=True)
+        dist.barrier()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        ram_mix.launches = 0
+        errs = []
+        with mock.patch.object(loop, "init_state", capture), mock.patch.object(train_steps, "all_reduce_grads", timed_grads), \
+                mock.patch.object(dist, "all_reduce", counted), k1_held_to_plain(ram_mix, errs, 2):
+            summary = loop.fit(rcfg, max_steps=job["steps"], pipeline=pipe,
+                               testset=job["testset"] if rank == 0 else None)
+        if on_card:
+            torch.cuda.synchronize(device)
+        launches = ram_mix.launches
+        state = captured["state"]
+        flat = torch.cat([t.detach().reshape(-1).float() for m in state.models.values()
+                          for t in m.state_dict().values()])
+        hi, lo = flat.clone(), flat.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        grad_ms = [a.elapsed_time(b) for a, b in grad_events[2:]]  # after the timer's warm-up steps
+        entry = dict(
+            steps=summary["steps"], k1_launches=launches,
+            k1_max_abs_err=max(float(e) for e in errs) if errs else None,
+            median_step_ms=summary["median_step_ms"], images_per_sec=summary["images_per_sec"],
+            peak_memory_bytes=torch.cuda.max_memory_allocated(device) if on_card else "not measured",
+            grad_all_reduce_ms=statistics.median(grad_ms) if grad_ms else "not measured",
+            all_reduces_per_step=host["n"] / max(summary["steps"], 1),
+            all_reduce_host_ms_per_step=1e3 * host["s"] / max(summary["steps"], 1),
+            replica_spread=float((hi - lo).abs().max()), digest=state_digest(torch, state),
+        )
+        if rank == 0:
+            rows = [json.loads(line) for line in open(os.path.join(rcfg.save_path, "log", "metrics.jsonl"))]
+            entry["losses"] = [r["loss/loss"] for r in rows if "loss/loss" in r]
+            entry["evals"] = sum("eval/avg_dice" in r for r in rows)
+        out["runs"][run] = entry
+    return out
+
+
+def ddp_launch(torch, np, ram_mix, cfg, data, testset, world, backend, devices, variants, steps, name, note):
+    """One launch of `world` ranks on `devices`: step 0 from the seed's
+    state against the single-process step from the same state and draws
+    (TF32 off) within step_parity's bounds, then a `fit` of `steps` steps for
+    each of `variants` ("plain" or a DDP_VARIANTS key) in turn.  Each run:
+    finite losses, an eval on rank 0 at each epoch's end and at the last
+    step, K1 once a step on every rank and
+    bit-equal in the warm-up steps, the replicas bit-equal at the end.
+    Emits a "ddp" line for step 0 and for each run, raises on any failed
+    check; returns {run: entry} (with rank 0's losses and state digest)."""
+    from ramdsir_tpu_torch.parallel import distributed
+    from ramdsir_tpu_torch.train.steps import sample_step_draws
+
+    runs = [name if v == "plain" else f"{name}_{v}" for v in variants]
+    fundus = cfg.dataset == "fundus"
+    pipe = ddp_pipe(cfg, data, DEVICE)
+    row = next(iter(pipe))
+    evals = -(-steps // len(pipe))  # at each epoch's end and at the last step
+    draws = sample_step_draws(torch.Generator().manual_seed(5), sum(cfg.batch_size_list), torch.device(DEVICE),
+                              crop=fundus)
+    with exact_float32(torch):
+        ref = step_from_seed(torch, ram_mix, cfg, pipe, row, draws, device=DEVICE)
+    del pipe
+    job = dict(cfg=cfg, data=data, testset=testset, row=row, draws={k: v.cpu().numpy() for k, v in draws.items()},
+               runs=[(r, DDP_VARIANTS.get(v, {})) for r, v in zip(runs, variants)], steps=steps)
+    t0 = time.perf_counter()
+    got = distributed.launch(ddp_rank, world, devices=devices, backend=backend, args=(job,), timeout_s=600.0)
+    launch_s = time.perf_counter() - t0
+    sd0 = {k: torch.from_numpy(v) for k, v in got[0]["step0"]["state"].items()}
+    loss_rel, param_err, stat_err, stats_ok = step_distance(
+        torch, (got[0]["step0"]["metrics"], sd0), (ref[0], {k: v.cpu() for k, v in ref[1].items()}))
+    parity = dict(loss_max_rel=loss_rel, loss_tol=1e-5, params_max_abs=param_err, params_tol=2.5 * cfg.lr,
+                  running_stats_max_abs=stat_err, stats_tol="rtol 1e-4, atol 1e-5",
+                  k1_launches=[g["step0"]["k1_launches"] for g in got],
+                  losses_equal_across_ranks=all(g["step0"]["metrics"] == got[0]["step0"]["metrics"] for g in got))
+    k1_per_step = 1 if DEVICE == "cuda" else 0  # a CPU rehearsal runs the plain mix
+    ok = (loss_rel <= 1e-5 and param_err <= 2.5 * cfg.lr and stats_ok and parity["losses_equal_across_ranks"]
+          and parity["k1_launches"] == [k1_per_step] * world)
+    batch = sum(cfg.batch_size_list)
+    emit("ddp", run=f"{name}:step0", world=world, backend=backend, devices=list(devices),
+         rows_per_rank=-(-batch // world), batch=batch, step_parity=parity, launch_s=launch_s)
+    if not ok:
+        raise SystemExit(f"ddp {name}: step 0 against the single-process step: {parity}")
+    results = {}
+    for run in runs:
+        per_rank = [g["runs"][run] for g in got]
+        r0 = per_rank[0]
+        entry = dict(
+            run=run, world=world, backend=backend, steps=r0["steps"], batch=batch,
+            k1_launches=[r["k1_launches"] for r in per_rank], k1_max_abs_err=[r["k1_max_abs_err"] for r in per_rank],
+            median_step_ms=[r["median_step_ms"] for r in per_rank], images_per_sec=r0["images_per_sec"],
+            peak_memory_bytes=[r["peak_memory_bytes"] for r in per_rank],
+            grad_all_reduce_ms=[r["grad_all_reduce_ms"] for r in per_rank],
+            all_reduces_per_step=r0["all_reduces_per_step"],
+            all_reduce_host_ms_per_step=[r["all_reduce_host_ms_per_step"] for r in per_rank],
+            replica_spread=r0["replica_spread"], digests_equal=len({r["digest"] for r in per_rank}) == 1,
+            evals=r0["evals"], first_loss=r0["losses"][0], last_loss=r0["losses"][-1], note=note,
+        )
+        if isinstance(r0["grad_all_reduce_ms"], float) and r0["median_step_ms"]:
+            entry["grad_all_reduce_share"] = r0["grad_all_reduce_ms"] / r0["median_step_ms"]
+            entry["all_reduce_host_share"] = r0["all_reduce_host_ms_per_step"] / r0["median_step_ms"]
+        finite = len(r0["losses"]) == steps and all(np.isfinite(r0["losses"]))
+        results[run] = dict(entry, losses=r0["losses"], digest=r0["digest"])
+        emit("ddp", **entry)
+        if not (finite and r0["steps"] == steps and entry["k1_launches"] == [k1_per_step * steps] * world
+                and all(e == 0.0 for e in entry["k1_max_abs_err"]) and entry["replica_spread"] == 0.0
+                and entry["digests_equal"] and r0["evals"] == evals):
+            raise SystemExit(f"ddp {run}: {entry}")
+    return results
+
+
+def phase_ddp(torch, np, ram_mix, arrays, testset, prostate_root):
+    """Data-parallel training at the reference configurations on the one
+    card (`ddp_launch` each): (a) fundus, one NCCL rank; (b) fundus, two
+    gloo ranks on the same card (rows 8 + 8, domain 1 on both), then twice
+    under --deterministic, whose two runs must end with the same state
+    digest and losses; (c) prostate, three gloo ranks (batch 10 padded to
+    12: 4 + 4 + 2 real rows).  Several ranks share one H100 here: the times
+    are not a multi-GPU speed."""
+    import dataclasses
+
+    from ramdsir_tpu_torch.config import PROSTATE_DOMAINS, TrainConfig
+    from ramdsir_tpu_torch.data.synthetic import prostate_arrays
+
+    t_phase = time.perf_counter()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    small_prostate = prostate_arrays(per_domain=DDP_PROSTATE_SLICES, size=PS, seed=0, domains=PROSTATE_DOMAINS[:5])
+    fundus_cfg = dataclasses.replace(main_path_config(TrainConfig, "default", DDP_OUT), device=DEVICE)
+    prostate_cfg = prostate_config(TrainConfig, DDP_OUT, prostate_root)
+    one_card = f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE
+    note = "several ranks share one card: not a multi-GPU speed"
+    launches = {"fundus": {}, "prostate": {}}
+    results = {}
+    groups = [  # (dataset, world, backend, variants run in turn in the one launch)
+        ("fundus", 1, "nccl" if DEVICE == "cuda" else "gloo", ["plain"]),
+        ("fundus", 2, "gloo", ["plain", "deterministic", "deterministic_again"]),
+        ("prostate", 3, "gloo", ["plain"]),
+    ]
+    for dataset, world, backend, variants in groups:
+        fundus = dataset == "fundus"
+        got = ddp_launch(torch, np, ram_mix, fundus_cfg if fundus else prostate_cfg,
+                         arrays if fundus else small_prostate, testset if fundus else None, world, backend,
+                         [one_card] * world, variants, DDP_STEPS if fundus else DDP_PROSTATE_STEPS,
+                         f"{dataset}_world{world}_{backend}", note)
+        results.update(got)
+        launches[dataset].update({f"ddp_{run}": entry["k1_launches"] for run, entry in got.items()})
+    a, b = (results[f"fundus_world2_gloo_deterministic{s}"] for s in ("", "_again"))
+    det_equal = a["digest"] == b["digest"] and a["losses"] == b["losses"]
+    emit("ddp_summary", seconds=time.perf_counter() - t_phase, deterministic_bit_equal=det_equal,
+         k1_launches=launches, note=note)
+    if not det_equal:
+        raise SystemExit("ddp: the two --deterministic world-2 runs are not bit-equal")
+    return results, launches
+
+
 # --- build -------------------------------------------------------------------
 
 
@@ -2146,6 +2403,7 @@ def run_phases(torch, card, name, bw):
     det_runs, k2_shapes = phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, data_root)
     k2 = phase_k2(torch, bw, k2_shapes)
     _, variant_launches = phase_variants(torch, np, ram_mix, arrays, testset, prostate, data_root, runs["default"])
+    _, ddp_launches = phase_ddp(torch, np, ram_mix, arrays, testset, data_root)
 
     phase_profile(torch, ram_mix, arrays, prostate)
     phase_step_parity(torch, np, ram_mix, arrays)
@@ -2162,7 +2420,7 @@ def run_phases(torch, card, name, bw):
         k = kernels[f"{case}@{S}x{S}"]
         # launches: the run at this entry's shape; the fundus variant runs
         # (some at other batches) only in launches_by_run
-        variants = variant_launches["fundus"] if run == "default" else {}
+        variants = {**variant_launches["fundus"], **ddp_launches["fundus"]} if run == "default" else {}
         if run == "ram_use_pallas":  # the host loaders' batches carry donor images: full mode
             variants = {name: r["k1_launches"] for name, r in host_runs.items()}
         line["kernels"].append({
@@ -2178,7 +2436,8 @@ def run_phases(torch, card, name, bw):
     line["kernels"].append({
         "name": f"ram_mix[band,delta]@prostate {PB}x{C}x{PS}x{PS}", "route": "cuda", "source": SOURCE_REL,
         "replaces": REPLACES, "launches": prostate_run["k1_launches"],
-        "launches_by_run": {"prostate": prostate_run["k1_launches"], **variant_launches["prostate"]},
+        "launches_by_run": {"prostate": prostate_run["k1_launches"], **variant_launches["prostate"],
+                            **ddp_launches["prostate"]},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
         "floor_ms": k["floor_ms"], "kernel_ms": k["kernel_ms"], "ms_clean_flush": k["ms_clean_flush"],

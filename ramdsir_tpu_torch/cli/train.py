@@ -1,6 +1,16 @@
 """Train CLI: the JAX package's flags (`ramdsir_tpu/cli/train.py`) plus
---device.  Every single-card variant runs; --num_devices > 1 raises
-NotImplementedError naming its ROADMAP.md item.
+--device.  Every variant runs.
+
+--num_devices N > 1 trains data-parallel over N ranks that this process
+launches (`parallel/distributed.py`): NCCL on cuda:0..N-1 (one GPU a rank;
+more ranks than visible GPUs raise), or with --device cpu N gloo ranks on
+the CPU.  Without the flag it is every visible CUDA device, as the JAX
+package takes every device; on the CPU, or on a host with one card, that is
+the single-process path.  Under torchrun (RANK, WORLD_SIZE, LOCAL_RANK set)
+the process joins the launch's group as its rank instead:
+  torchrun --nproc_per_node 2 -m ramdsir_tpu_torch.cli.train ...
+Rank 0 writes the run's files and evaluates; the step is the global
+batch's (sync-BN over the ranks' real rows, train/steps.py).
 
 Examples (RAM-DSIR on the card; fundus target domain 3, prostate target 5
 with the five other domains as sources, each evaluated every epoch):
@@ -19,8 +29,12 @@ variants: --norm gn|in, --num_classes 3 (prostate's softmax head), --remat,
 from __future__ import annotations
 
 import argparse
+import dataclasses
+
+import torch
 
 from ramdsir_tpu_torch.config import TrainConfig
+from ramdsir_tpu_torch.parallel import distributed
 from ramdsir_tpu_torch.train.loop import fit
 
 
@@ -50,7 +64,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--activation", type=str, default="relu")
     p.add_argument("--image_size", type=int, default=256)
     p.add_argument("--compute_dtype", type=str, default="float32", choices=["float32", "bfloat16"])
-    p.add_argument("--num_devices", type=int, default=None)
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="data-parallel ranks (default: every visible CUDA device; 1 on the CPU)")
     p.add_argument("--ram_use_pallas", action="store_true",
                    help="full-spectrum RAM with the per-step donor FFT (K1 full mode)")
     p.add_argument("--no_ram_banded_dft", action="store_true",
@@ -107,8 +122,28 @@ def main(argv=None):
         global_batch=a.global_batch,
         device=a.device,
     )
+    if distributed.under_torchrun():
+        return _torchrun_rank(cfg, a.max_steps)
+    if cfg.num_devices is None:
+        visible = torch.cuda.device_count() if torch.device(cfg.device).type == "cuda" else 1
+        cfg = dataclasses.replace(cfg, num_devices=max(1, visible))
     summary = fit(cfg, max_steps=a.max_steps)
     print(summary)
+    return summary
+
+
+def _torchrun_rank(cfg: TrainConfig, max_steps):
+    """This process as one rank of a torchrun launch."""
+    cpu = torch.device(cfg.device).type == "cpu"
+    device = distributed.initialize(device="cpu" if cpu else None)
+    rank = distributed.rank()
+    try:
+        cfg = dataclasses.replace(cfg, device=str(device), num_devices=distributed.world())
+        summary = fit(cfg, max_steps=max_steps)
+    finally:
+        torch.distributed.destroy_process_group()
+    if rank == 0:
+        print(summary)
     return summary
 
 

@@ -62,6 +62,8 @@ class TrainConfig:
     image_size: int = 256
     compute_dtype: str = "float32"
     predict_dtype: str = "float32"
+    # data-parallel ranks: fit launches them for N > 1 (None and 1: one
+    # process); the train CLI's default is every visible CUDA device
     num_devices: Optional[int] = None
     # full-spectrum RAM with the per-step donor FFT (the JAX package's
     # Pallas path); K1 runs in full mode

@@ -13,6 +13,12 @@ train domains (excluding the sample's own under is_out_domain).
 
 Layout: the device arrays are NCHW; the batch dicts handed to the train
 step are NHWC, as in the JAX package (views of NCHW memory).
+
+Data parallelism: every rank holds the whole train set on its device, as
+the JAX package replicates it over the mesh, and builds the same epoch plan
+from the same seed; the train step takes the rank's rows of each global
+index row, padded with index 0 where the mesh needs padding rows, and
+gathers and scale-crops only those (`train/steps.py`).
 """
 from __future__ import annotations
 

@@ -38,6 +38,20 @@ that lies from float32 (tests/test_torch_port_bf16.py).
 running statistics as they are.  `--remat` re-runs the encoder and seg
 decoder's forward in the backward (torch.utils.checkpoint), and the running
 statistics take one update a forward pass, as without it.
+
+Under a process group (`parallel/distributed.py`, data-parallel training)
+BatchNorm and DomainSpecificBatchNorm in training take their statistics over
+the real rows of every rank: each rank sums its real rows' x and x^2 a
+channel (each half under dual, each domain for DSBN) in float32 and
+all-reduces the sums with the counts (`parallel.mesh.all_reduce_sum`, whose
+backward carries the statistics' gradient to every rank); mean = E[x] and
+var = max(E[x^2] - E[x]^2, 0), as the JAX package computes them
+(`ramdsir_tpu/models/norm.py:96-98`, `:219-258`), and the running statistics
+take the update of the global count.  DSBN reduces one fixed (D, 2C + 1)
+tensor on every rank, whatever domains its rows hold, so every rank issues
+the same collectives in the same order; a domain with no real row on any
+rank keeps its running statistics.  The eval CLIs' BN adaptation, GroupNorm
+and InstanceNorm stay local.
 """
 from __future__ import annotations
 
@@ -48,6 +62,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ramdsir_tpu_torch.parallel.distributed import in_group
+from ramdsir_tpu_torch.parallel.mesh import all_reduce_sum
 
 BN_MOMENTUM = 0.1
 
@@ -93,6 +110,74 @@ def _update_running(running_mean, running_var, mean, var, real, momentum) -> Non
     with torch.no_grad():
         running_mean.mul_(1.0 - momentum).add_(mean, alpha=momentum)
         running_var.mul_(1.0 - momentum).add_(var * (n / max(n - 1.0, 1.0)), alpha=momentum)
+
+
+def _sums(x: torch.Tensor, dims) -> tuple:
+    """(sum of x, sum of x^2) over `dims`, float32, from x's own values: a
+    bfloat16 map is summed in float32 without a float32 copy."""
+    s1 = torch.sum(x, dims, dtype=torch.float32)
+    if x.dtype == torch.float32:
+        return s1, torch.sum(torch.square(x), dims)
+    return s1, torch.linalg.vector_norm(x, 2, dims, dtype=torch.float32).square()
+
+
+def _global_moments(s1: torch.Tensor, s2: torch.Tensor, count: torch.Tensor):
+    """(mean, var, count) over the process group from each rank's (G, C)
+    sums and (G,) counts: one all-reduce, in float64 (a count is exact
+    there).  var = max(E[x^2] - E[x]^2, 0); where the count is 0 both are 0."""
+    c = s1.shape[-1]
+    tot = all_reduce_sum(torch.cat([s1.double(), s2.double(), count.double()[:, None]], dim=1))
+    n = tot[:, -1]
+    safe = torch.clamp(n, min=1.0)[:, None]
+    mean = tot[:, :c] / safe
+    var = torch.clamp(tot[:, c : 2 * c] / safe - torch.square(mean), min=0.0)
+    return mean.float(), var.float(), n
+
+
+def _update_running_global(running_mean, running_var, mean, var, n, momentum) -> None:
+    """_update_running with the group's count n (a tensor)."""
+    with torch.no_grad():
+        unbiased = var * (n / torch.clamp(n - 1.0, min=1.0)).float()
+        running_mean.mul_(1.0 - momentum).add_(mean, alpha=momentum)
+        running_var.mul_(1.0 - momentum).add_(unbiased, alpha=momentum)
+
+
+def _apply_norm(x, weight, bias, mean, inv) -> torch.Tensor:
+    """(x - mean) * inv * weight + bias of x (N, C, H, W) with (C,) or
+    (N, C) statistics and affine: float32 in one product, bfloat16 in the
+    JAX package's four roundings (`_low_precision_norm`)."""
+    v = (lambda t: t[None, :, None, None]) if mean.ndim == 1 else (lambda t: t[:, :, None, None])
+    if x.dtype != torch.float32:
+        c = lambda t: v(t.to(x.dtype))
+        return (x - c(mean)) * c(inv) * c(weight) + c(bias)
+    return (x - v(mean)) * v(weight * inv) + v(bias)
+
+
+def _sync_train_norm(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    running_mean: torch.Tensor,
+    running_var: torch.Tensor,
+    momentum: float,
+    eps: float,
+    n_stats: Optional[int],
+    halves: int,
+) -> torch.Tensor:
+    """Train-mode BN of x (halves * n, C, H, W) under a process group: each
+    half's statistics from its first n_stats rows on every rank, the running
+    statistics updated half after half (None: left alone)."""
+    parts = x.chunk(halves)
+    real = [h if n_stats is None else h[:n_stats] for h in parts]
+    sums = [_sums(r, (0, 2, 3)) for r in real]
+    # made on the device: a tensor from host data would wait for the stream
+    count = torch.full((halves,), real[0].numel() / x.shape[1], dtype=torch.float64, device=x.device)
+    mean, var, n = _global_moments(torch.stack([s[0] for s in sums]), torch.stack([s[1] for s in sums]), count)
+    inv = torch.rsqrt(var + eps)
+    if running_mean is not None:
+        for i in range(halves):
+            _update_running_global(running_mean, running_var, mean[i], var[i], n[i], momentum)
+    return torch.cat([_apply_norm(h, weight, bias, mean[i], inv[i]) for i, h in enumerate(parts)])
 
 
 def _adapted_norm(
@@ -191,6 +276,8 @@ class BatchNorm(nn.Module):
                 # pass, so the recomputed activations are bit-equal to it
                 running = tuple(t.clone() for t in running)
             args = (self.weight, self.bias, *running, self.momentum, self.eps)
+            if in_group():
+                return _sync_train_norm(x, *args, n_valid, 2 if dual else 1)
             norm = lambda h: _train_norm(h, *args, n_valid)
         if dual:
             return torch.cat([norm(h) for h in x.chunk(2)])
@@ -294,6 +381,8 @@ class DomainSpecificBatchNorm(nn.Module):
         if labels.shape[0] != x.shape[0]:
             raise ValueError(f"{labels.shape[0]} domain labels for a batch of {x.shape[0]}")
         n_real = x.shape[0] if n_valid is None else n_valid
+        if self.training and in_group() and not self.bns[0].batch_stats_only:
+            return self._sync_segments(x, labels, n_real)
         order = np.argsort(labels, kind="stable")
         pieces = []
         for d in np.unique(labels):
@@ -313,3 +402,37 @@ class DomainSpecificBatchNorm(nn.Module):
         inverse = np.empty_like(order)
         inverse[order] = np.arange(len(order))
         return out[torch.as_tensor(inverse, device=x.device)]
+
+    def _sync_segments(self, x: torch.Tensor, labels: np.ndarray, n_real: int) -> torch.Tensor:
+        """Segment-mode DSBN under a process group: per-domain sums of the
+        first n_real rows through a one-hot (N, D) weight, all-reduced as
+        one (D, 2C + 1) tensor; each row normalised with its domain's global
+        statistics, or with its running statistics where no rank holds a
+        real row of the domain."""
+        bns = self.bns
+        d, (nb, c, h, w) = len(bns), x.shape
+        lab = torch.from_numpy(np.asarray(labels, np.int64))
+        if x.is_cuda:  # pinned and non_blocking: a pageable copy would wait for the stream
+            lab = lab.pin_memory().to(x.device, non_blocking=True)
+        real = (torch.arange(nb, device=x.device) < n_real).float()
+        onehot = F.one_hot(lab, d).float() * real[:, None]  # (N, D), padding rows weigh 0
+        s1, s2 = _sums(x, (2, 3))  # (N, C) each
+        mean, var, n = _global_moments(onehot.t() @ s1, onehot.t() @ s2, onehot.sum(0).double() * (h * w))
+        running_mean = torch.stack([bn.running_mean for bn in bns])
+        running_var = torch.stack([bn.running_var for bn in bns])
+        present = (n > 0)[:, None]
+        use_mean = torch.where(present, mean, running_mean)
+        use_var = torch.where(present, var, running_var)
+        if not bns[0].recomputing:
+            m = bns[0].momentum
+            with torch.no_grad():
+                unbiased = var * (n / torch.clamp(n - 1.0, min=1.0)).float()[:, None]
+                new_mean = torch.where(present, (1.0 - m) * running_mean + m * mean, running_mean)
+                new_var = torch.where(present, (1.0 - m) * running_var + m * unbiased, running_var)
+                for i, bn in enumerate(bns):
+                    bn.running_mean.copy_(new_mean[i])
+                    bn.running_var.copy_(new_var[i])
+        weight = torch.stack([bn.weight for bn in bns])
+        bias = torch.stack([bn.bias for bn in bns])
+        inv = torch.rsqrt(use_var + bns[0].eps)
+        return _apply_norm(x, weight[lab], bias[lab], use_mean[lab], inv[lab])

@@ -5,11 +5,41 @@ Every loss reduces over the whole batch, like the reference's torch losses
 step for step.  Reductions are global, so layout does not matter except for
 the class axis of `dice_loss_multi` and `cross_entropy_loss`, which is the
 last one (NHWC), as in the JAX package.
+
+Under a process group (data-parallel training) "the whole batch" is the
+global batch: each rank passes its real rows, and every mean and every
+dice sum is reduced over the ranks before it is divided (`_mean`, `_sums`),
+so a loss is the single-process loss of the global batch, the same on every
+rank.  Without a group they are the plain torch reductions.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 import torch.nn.functional as F
+
+from ramdsir_tpu_torch.parallel.distributed import in_group
+from ramdsir_tpu_torch.parallel.mesh import all_reduce_sum
+
+
+def _mean(t: torch.Tensor) -> torch.Tensor:
+    """torch.mean(t); under a process group the mean over every rank's
+    elements (the sum and the count reduced together, in float64)."""
+    if not in_group():
+        return torch.mean(t)
+    count = torch.full((), float(t.numel()), dtype=torch.float64, device=t.device)  # no host-to-device copy
+    tot = all_reduce_sum(torch.stack([torch.sum(t).double(), count]))
+    return (tot[0] / tot[1]).to(t.dtype)
+
+
+def _sums(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """torch.sum of each; under a process group summed over the ranks too,
+    in one all-reduce."""
+    sums = tuple(torch.sum(t) for t in ts)
+    if not in_group():
+        return sums
+    return tuple(all_reduce_sum(torch.stack(sums)).unbind())
 
 
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
@@ -22,7 +52,7 @@ def bce_with_logits_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Te
     """BCE on logits through softplus: mean of t*softplus(-x) + (1-t)*softplus(x)."""
     logits = logits.float()
     target = target.float()
-    return torch.mean(target * F.softplus(-logits) + (1.0 - target) * F.softplus(logits))
+    return _mean(target * F.softplus(-logits) + (1.0 - target) * F.softplus(logits))
 
 
 def dice_loss(score: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -30,9 +60,7 @@ def dice_loss(score: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     score = score.float()
     target = target.float()
     smooth = 1e-5
-    intersect = torch.sum(score * target)
-    y_sum = torch.sum(target * target)
-    z_sum = torch.sum(score * score)
+    intersect, y_sum, z_sum = _sums(score * target, target * target, score * score)
     return 1.0 - (2.0 * intersect + smooth) / (z_sum + y_sum + smooth)
 
 
@@ -51,9 +79,7 @@ def dice_loss_multi(
         count += 1
         t = (target == i).float()
         s = score[..., i]
-        intersect = torch.sum(s * t)
-        y_sum = torch.sum(t)
-        z_sum = torch.sum(s * s)
+        intersect, y_sum, z_sum = _sums(s * t, t, s * s)
         loss = loss + 1.0 - (2.0 * intersect + smooth) / (z_sum + y_sum + smooth)
     return loss / count
 
@@ -62,12 +88,12 @@ def cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tens
     """nn.CrossEntropyLoss (mean) on (..., C) logits and integer targets."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     onehot = F.one_hot(target.long(), logits.shape[-1]).float()
-    return -torch.mean(torch.sum(onehot * logp, dim=-1))
+    return -_mean(torch.sum(onehot * logp, dim=-1))
 
 
 def _kl_div_mean(log_input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """nn.KLDivLoss(reduction='mean'): mean of t*(log t - log_input), 0*log 0 := 0."""
-    return torch.mean(torch.xlogy(target, target) - target * log_input)
+    return _mean(torch.xlogy(target, target) - target * log_input)
 
 
 def kd_loss(p: torch.Tensor, q: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
@@ -83,7 +109,7 @@ def kd_loss(p: torch.Tensor, q: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
 
 def mse_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """nn.MSELoss (mean)."""
-    return torch.mean(torch.square(a.float() - b.float()))
+    return _mean(torch.square(a.float() - b.float()))
 
 
 def binary_kd_loss(l_p: torch.Tensor, l_q: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
@@ -102,11 +128,11 @@ def binary_kd_loss(l_p: torch.Tensor, l_q: torch.Tensor, eps: float = 0.0) -> to
         + (torch.xlogy(p1, p1) - p1 * torch.log(q1))
         + (torch.xlogy(p0, p0) - p0 * torch.log(q0))
     )
-    return torch.mean(pointwise) / 2.0
+    return _mean(pointwise) / 2.0
 
 
 def binary_mse_consistency(l_p: torch.Tensor, l_q: torch.Tensor) -> torch.Tensor:
     """`mse_loss(softmax(p), softmax(q))` of a 2-class head from its
     logit-difference maps."""
     d = torch.sigmoid(l_p.float()) - torch.sigmoid(l_q.float())
-    return torch.mean(torch.square(d))
+    return _mean(torch.square(d))

@@ -37,9 +37,23 @@ viz slices; `utils.logging.DeviceVizRing` copies them off the card without
 a synchronise, and at the next eval boundary and at the end `_log_viz`
 writes the reference's image grids as PNGs under log/images/.
 
+Data parallelism (`cfg.num_devices` > 1, `ramdsir_tpu/train/loop.py:174-229`):
+`fit` launches that many ranks (`parallel.distributed.launch`: NCCL on
+cuda:0..N-1, or gloo ranks with device "cpu") and returns rank 0's summary;
+a process that is already a rank (a torchrun launch, or a launched `fn`)
+trains as one.  Every rank builds the same epoch plan and draws from the
+same seed; with the device pipeline it holds the whole train set and
+gathers its rows of each step, with the host loaders it builds its
+`local_batch_slice` of the rows.  The state is broadcast from rank 0 after
+init or --resume (every rank loads the same `.ckpt`).  Rank 0 writes
+metrics.jsonl, the image grids, run_config.json, the keep-best file and the
+final checkpoints, and runs the in-training eval (running statistics, no
+collective) while the others wait at a barrier.  The summary's img/s is the
+global batch's.
+
 `cfg.trace_dir` (--trace_dir) profiles steps 2-12 (`utils.profiler.TraceWindow`)
-into a Chrome trace there.  `cfg.scan_window` is recorded and changes
-nothing: in the JAX package it groups steps into one dispatch with the
+into a Chrome trace there (under a group, rank 0's).  `cfg.scan_window` is
+recorded and changes nothing: in the JAX package it groups steps into one dispatch with the
 numerics of single steps; here each step is launched on its own.
 """
 from __future__ import annotations
@@ -64,6 +78,8 @@ from ramdsir_tpu_torch.data.fundus import FundusMultiDataset
 from ramdsir_tpu_torch.data.loaders import FusedMultiDomainLoader, ProcessFusedMultiDomainLoader
 from ramdsir_tpu_torch.data.prostate import ProstateMultiDataset
 from ramdsir_tpu_torch.data.transforms import ScaleCropAug
+from ramdsir_tpu_torch.parallel import distributed
+from ramdsir_tpu_torch.parallel.mesh import replicate_state
 from ramdsir_tpu_torch.train.checkpoint import BestKeeper, load_checkpoint, save_checkpoint
 from ramdsir_tpu_torch.train.evaluate import append_csv_log, eval_fundus, eval_prostate_volumes
 from ramdsir_tpu_torch.train.state import init_state
@@ -131,12 +147,13 @@ def deterministic_mode(on: bool):
 Pipeline = Union[DeviceFundusPipeline, DeviceProstatePipeline, FusedMultiDomainLoader]
 
 
-def build_train_pipeline(cfg: TrainConfig, data_root: str) -> Pipeline:
+def build_train_pipeline(cfg: TrainConfig, data_root: str, rows: Optional[slice] = None) -> Pipeline:
     """The fundus PNG tree or the prostate slice tree under data_root: on
     cfg.device (the device pipeline), or with cfg.device_data=False behind
     the host loaders (`ramdsir_tpu/train/loop.py:34-107`): one dataset per
     source domain, fundus through the decode cache at image_size and the
-    training scale-crop, each sample's draws seeded by its position."""
+    training scale-crop, each sample's draws seeded by its position, and
+    `rows` (a data-parallel rank's) the rows of each batch they build."""
     bsl = cfg.batch_size_list[: len(cfg.domain_idxs)]
     if cfg.device_data:
         kw = dict(
@@ -164,11 +181,13 @@ def build_train_pipeline(cfg: TrainConfig, data_root: str) -> Pipeline:
         ]
     keys = ("img", "donor", "mask") if cfg.ram else ("img", "mask")
     if cfg.loader == "process":
-        return ProcessFusedMultiDomainLoader(datasets, bsl, keys, seed=cfg.seed, num_workers=cfg.num_workers)
+        return ProcessFusedMultiDomainLoader(
+            datasets, bsl, keys, seed=cfg.seed, num_workers=cfg.num_workers, rows=rows
+        )
     if cfg.loader != "thread":
         raise ValueError(f"unknown loader {cfg.loader!r} (use 'process' or 'thread')")
     return FusedMultiDomainLoader(
-        datasets, bsl, keys, seed=cfg.seed, prefetch=cfg.prefetch + 2, num_workers=cfg.num_workers or 6
+        datasets, bsl, keys, seed=cfg.seed, prefetch=cfg.prefetch + 2, num_workers=cfg.num_workers or 6, rows=rows
     )
 
 
@@ -299,6 +318,24 @@ def evaluate_target(cfg: TrainConfig, predict, testset, epoch: int, save_dir: st
     return res.avg_dice_pct, dict(cup_dice=res.cup_dice, disc_dice=res.disc_dice, eval_timing=res.timing)
 
 
+class _NoWriter:
+    """The metrics writer of a rank other than 0: rank 0 writes the logs."""
+
+    def add_scalars(self, *args, **kwargs) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _fit_rank(rank: int, device: torch.device, cfg: TrainConfig, eval_every: int, max_steps: Optional[int]) -> Dict:
+    """One launched rank of `fit`."""
+    return fit(dataclasses.replace(cfg, device=str(device)), eval_every=eval_every, max_steps=max_steps)
+
+
 def fit(
     cfg: TrainConfig,
     eval_every: int = 1,
@@ -309,9 +346,18 @@ def fit(
     """Train on cfg.device; returns a summary dict.  `pipeline` and
     `testset` replace the train set and the test data read from
     cfg.data_root (in-memory sets, for smoke runs): fundus test samples, or
-    prostate (name, image, mask) volumes."""
+    prostate (name, image, mask) volumes.  cfg.num_devices > 1 outside a
+    process group launches that many ranks and returns rank 0's summary
+    (the module docstring); in-memory sets cannot be sent to them, so a
+    caller with those launches its own ranks and calls `fit` in each."""
     cfg = cfg.resolve()
     check_supported(cfg)
+    if (cfg.num_devices or 1) > 1 and not distributed.in_group():
+        if pipeline is not None or testset is not None:
+            raise ValueError("fit launches its own ranks for num_devices > 1 and cannot send them in-memory sets")
+        n = cfg.num_devices  # NCCL on cuda:0..n-1, or n gloo ranks on the CPU
+        devices = [f"cuda:{r}" for r in range(n)] if torch.device(cfg.device).type == "cuda" else [cfg.device] * n
+        return distributed.launch(_fit_rank, n, devices=devices, args=(cfg, eval_every, max_steps))[0]
     device = resolve_device(cfg.device)
     with deterministic_mode(cfg.deterministic):
         if cfg.deterministic:
@@ -321,9 +367,13 @@ def fit(
 
 def _fit(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset) -> Dict:
     save_dir = cfg.save_path
-    save_run_config(save_dir, cfg)
+    if distributed.rank() == 0:
+        save_run_config(save_dir, cfg)
     if pipeline is None:
-        pipeline = build_train_pipeline(cfg, os.path.join(cfg.data_root, cfg.dataset))
+        rows = None
+        if distributed.in_group() and not cfg.device_data:  # the host loaders build this rank's rows
+            rows = distributed.local_batch_slice(sum(cfg.batch_size_list[: len(cfg.domain_idxs)]))
+        pipeline = build_train_pipeline(cfg, os.path.join(cfg.data_root, cfg.dataset), rows)
     try:
         return _train(cfg, device, eval_every, max_steps, pipeline, testset, save_dir)
     finally:
@@ -336,17 +386,21 @@ def _train(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset, s
     total_iters = steps_per_epoch * cfg.epochs
     b_real = sum(pipeline.batch_sizes)
 
+    is_main = distributed.rank() == 0  # writes the logs and checkpoints, evaluates
+    grouped = distributed.in_group()
     generator = torch.Generator().manual_seed(cfg.seed)
     state = init_state(cfg, generator, device)
     if cfg.checkpoint_resume:
         load_checkpoint(cfg.checkpoint_resume, state)
-        print(f"resumed from {cfg.checkpoint_resume} at step {state.step}", flush=True)
+        if is_main:
+            print(f"resumed from {cfg.checkpoint_resume} at step {state.step}", flush=True)
+    replicate_state(state)  # rank 0's state on every rank; nothing without a group
     train_step = make_train_step(cfg, total_iters, batch_size_list=pipeline.batch_sizes, device_data=device_data)
     predict = make_predict_fn(cfg, state.models, bn_adapt=False)
-    writer = MetricsWriter(os.path.join(save_dir, "log"))
-    keeper = BestKeeper(save_dir)
+    writer = MetricsWriter(os.path.join(save_dir, "log")) if is_main else _NoWriter()
+    keeper = BestKeeper(save_dir) if is_main else None
     timer = StepTimer(device=device)
-    tracer = TraceWindow(cfg.trace_dir, device) if cfg.trace_dir else None
+    tracer = TraceWindow(cfg.trace_dir, device) if cfg.trace_dir and is_main else None
     vizring = DeviceVizRing()
     log_viz = lambda viz, s: _log_viz(writer, viz, s, cfg)
     host_rows: List[Dict] = []
@@ -365,7 +419,9 @@ def _train(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset, s
             log_images = bool(cfg.log_images_every) and step % cfg.log_images_every == 0
             metrics = train_step(state, row, generator, viz=log_images)
             if log_images:
-                vizring.append(step, metrics.pop("_viz"))
+                viz = metrics.pop("_viz")  # assembled on every rank (a collective), kept by rank 0
+                if is_main:
+                    vizring.append(step, viz)
             lr = float(metrics.pop("lr"))
             names = list(metrics)
             values = torch.stack([metrics[k] for k in names]).tolist()  # one device sync
@@ -384,7 +440,8 @@ def _train(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset, s
         if stream is not None:
             host_rows.append(_input_row(stream, timer.step_seconds[first_timed:], b_real, device))
             writer.add_scalars({"epoch": epoch, **host_rows[-1]}, step, prefix="input/")
-        if (epoch + 1) % eval_every == 0 or done:
+        at_eval = (epoch + 1) % eval_every == 0 or done
+        if at_eval and is_main:
             timer.mark()
             writer.flush()
             with timer.paused():
@@ -398,9 +455,16 @@ def _train(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset, s
                 f"{timer.items_per_sec:.1f} img/s | epoch {time.time() - t_ep:.1f}s",
                 flush=True,
             )
+        if at_eval and grouped:
+            with timer.paused():
+                torch.distributed.barrier()  # the others wait for rank 0's eval
         epoch += 1
 
     timer.mark()
+    if not is_main:
+        torch.distributed.barrier()  # rank 0 has written the run's files
+        return dict(steps=step, rank=distributed.rank(), images_per_sec=timer.items_per_sec,
+                    median_step_ms=timer.median_step_ms)
     vizring.flush(log_viz)
     if tracer:
         tracer.close()  # a run that ended before the window's last step
@@ -410,6 +474,8 @@ def _train(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset, s
     resume_path = os.path.join(save_dir, "final_model.ckpt")
     save_checkpoint(resume_path, state, meta={"steps": step})
     writer.close()
+    if grouped:
+        torch.distributed.barrier()
     summary.update(
         best=keeper.best, best_checkpoint=keeper.best_path, steps=step,
         images_per_sec=timer.items_per_sec, median_step_ms=timer.median_step_ms,

@@ -40,6 +40,23 @@ pipeline, the scale-crop's apply/factor/offset draws) comes from
 `sample_step_draws`, in one place, from one Generator; a caller may pass the
 draws instead (the tests pass the numbers the JAX functions drew).
 
+Data parallelism (`--num_devices` > 1; `ramdsir_tpu/train/steps.py:69-94`,
+`ramdsir_tpu/parallel/mesh.py`): under a process group (`parallel/`) each
+rank holds per = ceil(B / world) rows of the global batch of B real rows,
+zero-padded at its end to world x per (pad_to_multiple, as JAX's), and
+clip(B - rank * per, 0, per) of them are real (`parallel.mesh.rank_rows`).
+The norms take their statistics over every rank's real rows and the losses
+reduce over them (`models/norm.py`, `ops/losses.py`), so every rank computes
+the global batch's loss; padded rows take DSBN domain 0 and enter no
+statistic and no loss.  The gradients are averaged over the ranks in one
+all-reduce before Adam (`parallel.mesh.all_reduce_grads`, which says why the
+mean is the global loss's gradient), so the replicas stay bit-equal.  Every
+rank draws the global batch's draws from the shared generator and takes its
+rows, so the global batch is the single-process one draw for draw.  Without
+a group and with pad_to_multiple the step takes the padded global batch on
+one process, as the JAX package's padded single-device step does; without
+either it is the single-process step, unchanged.
+
 Layout: batch dicts are NHWC as in the JAX package; the step works on NCHW
 from the encoder on.  The host loaders' fundus batches arrive as uint8
 (img, donor, mask) and are promoted to float32 on the device, which is
@@ -70,6 +87,8 @@ from torch.utils.checkpoint import checkpoint
 from ramdsir_tpu_torch.config import CONSISTENCY_WEIGHT, POLY_POWER, TrainConfig
 from ramdsir_tpu_torch.data.device_pipeline import gather_and_augment, gather_prostate, sample_crop_draws
 from ramdsir_tpu_torch.models.norm import batch_statistics, recomputing
+from ramdsir_tpu_torch.parallel import distributed
+from ramdsir_tpu_torch.parallel.mesh import all_reduce_grads, all_reduce_sum, pad_rows, rank_rows
 from ramdsir_tpu_torch.ops.losses import (
     bce_with_logits_loss,
     binary_kd_loss,
@@ -99,11 +118,21 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise NotImplementedError for more than one card (not ported yet,
-    ROADMAP.md: Multi-GPU DDP), ValueError for an unknown dtype or
+    """Raise ValueError for what cannot run: more ranks than the global
+    batch has real rows, more NCCL ranks than visible GPUs (under a group,
+    cfg.num_devices must be its world size), an unknown dtype or
     consistency type."""
-    if cfg.num_devices and cfg.num_devices > 1:
-        raise NotImplementedError("--num_devices > 1 is not ported yet (ROADMAP.md: Multi-GPU DDP)")
+    b_real = sum(cfg.batch_size_list[: len(cfg.domain_idxs)])
+    ranks = distributed.world() if distributed.in_group() else (cfg.num_devices or 1)
+    if distributed.in_group() and cfg.num_devices not in (None, ranks):
+        raise ValueError(f"--num_devices {cfg.num_devices} in a process group of {ranks} ranks")
+    if ranks > b_real:
+        raise ValueError(f"{ranks} ranks for a global batch of {b_real} rows")
+    if ranks > 1 and not distributed.in_group() and torch.device(cfg.device).type == "cuda":
+        if ranks > torch.cuda.device_count():
+            raise ValueError(
+                f"--num_devices {ranks} but {torch.cuda.device_count()} visible GPU(s); NCCL wants one GPU a rank"
+            )
     torch_dtype(cfg.compute_dtype)
     if cfg.consistency and cfg.consistency_type not in ("mse", "kd"):
         raise ValueError(f"unknown consistency_type {cfg.consistency_type!r} (use 'mse' or 'kd')")
@@ -131,6 +160,7 @@ def make_train_step(
     batch_size_list: Optional[List[int]] = None,
     device_data: Optional[Mapping[str, torch.Tensor]] = None,
     debug_grads: bool = False,
+    pad_to_multiple: Optional[int] = None,
 ) -> Callable:
     """Build `train_step(state, batch, generator=None, draws=None, viz=False) -> metrics`.
 
@@ -141,9 +171,16 @@ def make_train_step(
     arrays) batch is instead {img_idx, donor_idx} index rows, and the step
     gathers (and for fundus scale-crops) on the device.
 
+    Data parallelism (module docstring): pad_to_multiple is the world size
+    under a process group (the default there).  The device pipeline's index
+    row and the draws are the global batch's (B rows), and the step takes
+    this rank's rows; any other batch holds this rank's rows already (per
+    rows, or only its real ones), as `pad_batch` and `rank_rows` cut them.
+
     The step updates `state` in place (modules, BN running statistics, Adam,
     state.step) and returns its metrics as 0-d tensors under the JAX
-    package's keys; debug_grads=True adds the raw gradients under "_grads".
+    package's keys; debug_grads=True adds the raw gradients under "_grads"
+    (under a group, the global batch's, after the all-reduce).
     """
     cfg = cfg.resolve()
     check_supported(cfg)
@@ -152,24 +189,47 @@ def make_train_step(
     dual_bn = cfg.norm == "bn"  # GN and IN are per sample: no per-half statistics
     bsl = list(batch_size_list or cfg.batch_size_list)[: len(cfg.domain_idxs)]
     b_real = sum(bsl)
-    domains = np.repeat(np.arange(len(bsl)), bsl)  # per-sample DSBN labels
+    world, rank = distributed.world(), distributed.rank()
+    grouped = distributed.in_group()
+    if grouped and pad_to_multiple not in (None, world):
+        raise ValueError(f"pad_to_multiple {pad_to_multiple} under a process group of {world} ranks")
+    multiple = world if grouped else pad_to_multiple
+    b_pad = b_real + ((-b_real) % multiple if multiple else 0)
+    rows, n_local = rank_rows(b_real, world, rank) if grouped else (slice(0, b_pad), b_real)
+    per = rows.stop - rows.start
+    n_valid = None if n_local == per else n_local  # real rows of this rank's batch (of each half)
+    # per-sample DSBN labels of this rank's rows; padded rows take domain 0
+    domains = np.concatenate([np.repeat(np.arange(len(bsl)), bsl), np.zeros(b_pad - b_real, np.int64)])[rows]
+    viz_rows = list(range(0, min(9, b_real), 4))  # the global batch's rows 0:9:4
     base_lr = float(cfg.lr)
     compute_dtype = torch_dtype(cfg.compute_dtype)
     group_factor = {"encoder": 0.5 if cfg.rec else 1.0}
     seg_cache: Dict[tuple, torch.Tensor] = {}
 
     def rec_weights(shape, device) -> torch.Tensor:
-        """(D, B) segment matrix with each domain's 1/(bs*C*H*W): per-domain
+        """(D, n) segment matrix over this rank's n real rows with each
+        domain's 1/(bs*C*H*W), bs its rows in the global batch: per-domain
         mean squared errors as one product."""
         key = (tuple(shape), device)
         if key not in seg_cache:
-            seg = np.zeros((len(bsl), b_real), np.float32)
-            left = 0
-            for d, bs in enumerate(bsl):
-                seg[d, left : left + bs] = 1.0 / (bs * float(np.prod(shape[1:])))
-                left += bs
+            seg = np.zeros((len(bsl), shape[0]), np.float32)
+            for i, d in enumerate(domains[: shape[0]]):
+                seg[d, i] = 1.0 / (bsl[d] * float(np.prod(shape[1:])))
             seg_cache[key] = torch.from_numpy(seg).to(device)
         return seg_cache[key]
+
+    def global_rows(t: torch.Tensor, wanted) -> torch.Tensor:
+        """Rows `wanted` of the global batch from t, this rank's real rows
+        first: under a group every rank fills the rows it holds into zeros
+        and one all-reduce assembles them (gloo's CUDA tensors offer no
+        all_gather)."""
+        if not grouped:
+            return t[wanted]
+        out = t.new_zeros((len(wanted),) + tuple(t.shape[1:]))
+        for i, g in enumerate(wanted):
+            if rows.start <= g < rows.start + n_local:
+                out[i] = t[g - rows.start]
+        return all_reduce_sum(out)
 
     def nchw(x: torch.Tensor) -> torch.Tensor:
         return x.permute(0, 3, 1, 2).contiguous()
@@ -202,8 +262,8 @@ def make_train_step(
         enc, dec = state.models["encoder"], state.models["seg_decoder"]
 
         def run(x):
-            feats = enc(x, dual=dual)
-            return feats[-1], dec(feats, dual=dual)
+            feats = enc(x, dual=dual, n_valid=n_valid)
+            return feats[-1], dec(feats, dual=dual, n_valid=n_valid)
 
         if not cfg.remat:
             return run(x)
@@ -236,7 +296,7 @@ def make_train_step(
         else:
             img, img_freq = (batch["img"] / 127.5 - 1.0 if is_fundus else batch["img"].float()), None
         img = nchw(img)  # float32: RAM ran in float32 and the restoration MSE reads img
-        mask = (nchw(batch["mask"]) if is_fundus else batch["mask"])[:b_real]
+        mask = (nchw(batch["mask"]) if is_fundus else batch["mask"])[:n_local]
 
         if cfg.ram:
             # one forward over [clean; RAM]: per-half BN statistics, the two
@@ -244,10 +304,10 @@ def make_train_step(
             # per sample and need no halves
             half = img.shape[0]
             last, logits_all = forward(state, torch.cat([img, nchw(img_freq)]).to(compute_dtype), dual=dual_bn)
-            logits1, logits2 = logits_all[:b_real], logits_all[half : half + b_real]
+            logits1, logits2 = logits_all[:n_local], logits_all[half : half + n_local]
             feats_f_last = last[half:]
         else:
-            logits1 = forward(state, img.to(compute_dtype))[1][:b_real]
+            logits1 = forward(state, img.to(compute_dtype))[1][:n_local]
 
         pred1, loss_sup1, loss_dice1 = seg_head(logits1, mask)
         loss = loss_sup1 + loss_dice1
@@ -262,14 +322,16 @@ def make_train_step(
             if cfg.rec:
                 # one rec-decoder pass over the whole RAM bottleneck, DSBN in
                 # segment mode; per-domain MSE through the segment matrix
-                rec_soft = torch.tanh(state.models["rec_decoder"](feats_f_last, domain=domains).float())
-                per_row = torch.sum(torch.square(rec_soft[:b_real] - img[:b_real]), dim=(1, 2, 3))
-                loss_rec_d = rec_weights(rec_soft[:b_real].shape, img.device) @ per_row
+                rec_soft = torch.tanh(
+                    state.models["rec_decoder"](feats_f_last, domain=domains, n_valid=n_valid).float()
+                )
+                per_row = torch.sum(torch.square(rec_soft[:n_local] - img[:n_local]), dim=(1, 2, 3))
+                loss_rec_d = all_reduce_sum(rec_weights(rec_soft[:n_local].shape, img.device) @ per_row)
                 avg_rec = torch.sum(loss_rec_d)
                 loss = loss + cfg.lambda_rec * avg_rec
                 if want_viz:
                     firsts = np.cumsum([0] + bsl[:-1])[:3]  # each domain's first row
-                    viz["image_rec"] = rec_soft[firsts].permute(0, 2, 3, 1)
+                    viz["image_rec"] = global_rows(rec_soft.detach(), list(firsts)).permute(0, 2, 3, 1)
             metrics.update({
                 f"{sup_tag}_2": loss_sup2,
                 "loss_dice_2": loss_dice2,
@@ -278,10 +340,11 @@ def make_train_step(
             })
         metrics["loss"] = loss
         if want_viz:
-            viz.update(image=img[0:9:4].permute(0, 2, 3, 1), pred=viz_probs(pred1[0:9:4], mask.shape[-2:]),
-                       mask=(mask.permute(0, 2, 3, 1) if is_fundus else mask)[0:9:4])
+            pick = lambda t: global_rows(t.detach(), viz_rows)
+            viz.update(image=pick(img).permute(0, 2, 3, 1), pred=viz_probs(pick(pred1), mask.shape[-2:]),
+                       mask=pick(mask.permute(0, 2, 3, 1) if is_fundus else mask))
             if cfg.ram:
-                viz["image_freq"] = img_freq[0:9:4]
+                viz["image_freq"] = pick(img_freq)
         return loss, metrics, {k: v.detach() for k, v in viz.items()}
 
     def train_step(
@@ -296,20 +359,27 @@ def make_train_step(
             if generator is None:
                 raise ValueError("train_step needs a generator or precomputed draws")
             draws = sample_step_draws(generator, b_real, device, crop=device_data is not None and is_fundus)
+        if b_pad != b_real or grouped:  # this rank's rows of the global draws
+            draws = {k: pad_rows(v[:b_real], b_pad)[rows] for k, v in draws.items()}
         if device_data is not None:
             idx = {k: torch.as_tensor(np.asarray(v), dtype=torch.long).to(device) for k, v in batch.items()}
+            if b_pad != b_real or grouped:  # padded with index 0, masked by n_valid
+                idx = {k: pad_rows(v, b_pad)[rows] for k, v in idx.items()}
             if is_fundus:
                 batch = gather_and_augment(device_data, idx["img_idx"], idx["donor_idx"], draws, cfg.image_size)
             else:
                 batch = gather_prostate(device_data, idx["img_idx"], idx["donor_idx"])
-        elif is_fundus:  # a host batch: uint8 on the wire
-            batch = {k: v.float() if v.dtype == torch.uint8 else v for k, v in batch.items()}
+        else:
+            if is_fundus:  # a host batch: uint8 on the wire
+                batch = {k: v.float() if v.dtype == torch.uint8 else v for k, v in batch.items()}
+            batch = {k: pad_rows(v, per) for k, v in batch.items()}  # this rank's rows, padding added
         for m in state.models.values():
             m.train()
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         loss, metrics, viz_slices = loss_fn(state, batch, draws, viz)
         loss.backward()
+        all_reduce_grads(state.models)  # the mean over the ranks; nothing without a group
         if debug_grads:
             metrics["_grads"] = {
                 name: {k: p.grad.detach().clone() for k, p in m.named_parameters()}

@@ -1,6 +1,6 @@
 """The port's train and eval CLIs on the CPU (fundus and prostate), each
-single-card variant flag of the train CLI, its import hygiene, and its one
-refusal (more than one card)."""
+variant flag of the train CLI (--num_devices 2 as two gloo ranks), its
+import hygiene, and its refusal of more CUDA ranks than visible GPUs."""
 import ast
 import json
 import os
@@ -353,7 +353,8 @@ print(bad)
     for new in ("native", "ops.metrics", "ops.postprocess", "ops.resize", "data.loaders", "train.evaluate",
                 "train.checkpoint", "utils.viz", "cli.test_fundus_slice", "data.nifti", "data.prostate",
                 "cli.test_prostate_volume", "utils.msgpack", "data.png", "ops.image", "ops.upsample",
-                "ops.cuda_build", "utils.profiler", "models.norm", "data.transforms", "utils.logging"):
+                "ops.cuda_build", "utils.profiler", "models.norm", "data.transforms", "utils.logging",
+                "parallel.mesh", "parallel.distributed"):
         assert f"ramdsir_tpu_torch.{new}" in names, new
     assert bad == [], bad
 
@@ -418,10 +419,37 @@ def test_failing_compiler_raises(monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--num_devices", "2"]], ids=lambda f: f[0].lstrip("-"))
 def test_unported_flags_raise(tmp_path, flags):
-    """More than one card is not ported: it raises before anything runs."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli_main(["--device", "cpu", "--save_path", str(tmp_path / "run"), "--ram", *flags])
+    """More NCCL ranks than visible GPUs raise before anything runs: no rank
+    is started and nothing shares a card quietly (on the CPU, --device cpu
+    runs them as gloo ranks: test_num_devices_two_on_cpu)."""
+    visible = torch.cuda.device_count()
+    flags = [str(max(2, visible + 1)) if f == "2" else f for f in flags]
+    with pytest.raises(ValueError, match="visible GPU"):
+        cli_main(["--device", "cuda", "--save_path", str(tmp_path / "run"), "--ram", *flags])
     assert not (tmp_path / "run").exists()
+
+
+def test_num_devices_two_on_cpu(trained_run, tmp_path, capfd, monkeypatch):
+    """cli.train --device cpu --num_devices 2: two gloo ranks train the
+    global batch (3+6+7 rows, 8 a rank), rank 0 evaluates once and writes
+    one set of files (each step logged once), and the CLI prints rank 0's
+    summary."""
+    data, run = trained_run[0] / "data", tmp_path / "ddp"
+    monkeypatch.setenv("OMP_NUM_THREADS", str(max(1, worker_threads() // 2)))  # the ranks' share of the cores
+    summary = cli_main(["--device", "cpu", "--num_devices", "2", "--data_root", str(data), "--dataset", "fundus",
+                        "--domain_idxs", "1,2,3", "--test_domain_idx", "0", "--ram", "--rec", "--is_out_domain",
+                        "--consistency", "--consistency_type", "kd", "--save_path", str(run), "--image_size", "32",
+                        "--epochs", "1", "--max_steps", "2", "--test_batch_size", "2"])
+    out = capfd.readouterr().out  # the ranks print to the file descriptors
+    assert len(re.findall(r"epoch 0: eval avg dice [0-9.]+ \| best", out)) == 1, out
+    assert summary["steps"] == 2 and {"cup_dice", "disc_dice", "best", "resume_checkpoint"} <= set(summary)
+    rows = [json.loads(line) for line in (run / "log" / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in rows if "loss/loss" in r] == [0, 1]
+    assert all(np.isfinite(r["loss/loss"]) for r in rows if "loss/loss" in r)
+    assert len((run / "0_val_log.csv").read_text().splitlines()) == 1
+    assert json.loads((run / "run_config.json").read_text())["config"]["num_devices"] == 2
+    for f in ("final_model.pth", "final_model.ckpt"):
+        assert (run / f).is_file(), f
 
 
 @pytest.fixture(scope="module")

@@ -1,14 +1,17 @@
 """K1 and K2 on the card against their plain versions, the eval path on
 the card against the CPU, a bfloat16 step through K1, a `.ckpt` round trip
 of a card state, deterministic steps that repeat bit for bit, the GN / IN
-forwards against the CPU, --remat bit-equal to no remat, and the host input
+forwards against the CPU, --remat bit-equal to no remat, the host input
 path on the card: the host-to-device stream, the viz ring, `fit` on the
-host loaders (marker `cuda`; skipped without a card).
+host loaders, and data-parallel steps on the card: one NCCL rank, and two
+gloo ranks sharing cuda:0, against the single-process step (marker `cuda`;
+skipped without a card).
 
 These tests import neither JAX nor the JAX package, so they also run where
 JAX is not installed; the root conftest.py imports JAX, so run them there
 with `python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py`.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -504,3 +507,57 @@ def test_fit_on_host_loaders_on_card(gen, tmp_path, loader):
     (inp,) = [r for r in rows if "input/h2d_ms" in r]
     assert inp["input/h2d_ms"] > 0 and inp["input/device_peak_bytes"] > 0
     assert len(os.listdir(os.path.join(cfg.save_path, "log", "images"))) == 7
+
+
+# --- data-parallel steps on the card ------------------------------------------------
+
+
+def _ddp_inputs(b, hw, seed=0):
+    import numpy as np
+
+    from ramdsir_tpu_torch.ops.ram import banded_amplitude_spectrum
+
+    rng = np.random.default_rng(seed)
+    donor = torch.from_numpy(rng.uniform(0, 255, (b, hw, hw, 3)).astype(np.float32))
+    batch = {
+        "img": rng.uniform(0, 255, (b, hw, hw, 3)).astype(np.float32),
+        "mask": (rng.uniform(size=(b, hw, hw, 2)) > 0.5).astype(np.float32),
+        "donor_amp": banded_amplitude_spectrum(donor).numpy(),
+    }
+    return batch, rng.uniform(0, 1, b).astype(np.float32)
+
+
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")], ids=["nccl_world1", "gloo_world2_one_card"])
+def test_ddp_step_on_card_matches_single_process(gen, world, backend):
+    """One fundus step (batch 3+6+7 at 64^2) on `world` ranks on cuda:0
+    against the same step without a process group, TF32 off: step_parity's
+    bounds (losses within 1e-5 relative, parameters within 2.5 lr, running
+    statistics rtol 1e-4 / atol 1e-5), the replicas bit-equal, K1 launched
+    once on every rank."""
+    import tests._ddp_ranks as ranks
+    from ramdsir_tpu_torch.parallel import distributed
+
+    cfg = dict(dataset="fundus", image_size=64, domain_idxs=(0, 1, 2), test_domain_idx=3, log_images_every=0)
+    batch, ratio = _ddp_inputs(16, 64)
+    case = dict(cfg_kw=cfg, bsl=[3, 6, 7], batches=[batch], ratios=[ratio])
+    got = distributed.launch(ranks.run_cases, world, devices=["cuda:0"] * world, backend=backend,
+                             args=([("step", "step", case)],), timeout_s=300.0)
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    ranks.exact_float32()
+    try:
+        want = ranks.step_case(**case, device="cuda")
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = saved
+    lr = 2e-3
+    for r in got:
+        res = r["step"]
+        assert res["k1_launches"] == 1
+        for k, w in want["metrics"][0].items():
+            assert abs(res["metrics"][0][k] - w) <= 1e-5 * max(abs(w), 1e-6), (k, res["metrics"][0][k], w)
+        for name, sd in want["state0"].items():
+            for k, w in sd.items():
+                tol = dict(rtol=1e-4, atol=1e-5) if "running" in k else dict(rtol=0, atol=2.5 * lr)
+                assert np.allclose(res["state0"][name][k], w, **tol), f"{name}.{k}"
+    assert len({r["step"]["digests"][0] for r in got}) == 1
