@@ -159,6 +159,23 @@ result line):
               memory, the gradient all-reduce (CUDA events) and all
               all-reduces' host time a step.  Ranks sharing one card: no
               figure is a multi-GPU speed
+  host_library
+              the reference's transform library (data/transforms.py), on
+              this machine's host without PIL: 16 of png_tree's 800^2 pairs
+              through the training chain (Resize, RandomScaleCrop to 256^2),
+              the test chain (Resize, Normalize) and every other transform
+              and painting function once, each pair on its own Generator
+              from one seed; mean ms an image per transform (host clock); a
+              second run from the seed (8 threads) equal array for array
+  zoo         the model zoo (models/unet.py) at n=16, batch 16 at 256^2:
+              Unet2D, Unet2DMT (both heads), Unet2DDS (deep_sup), Unet2DMS
+              (multi_scale_output), Discriminator; one train-mode forward
+              with TF32 off against the CPU's (running statistics within
+              rtol 1e-4 / atol 1e-5) and the float64 forward (within 1e-5
+              of the largest output, or twice the CPU float32 forward's
+              distance where that is larger); the median of 10
+              forward+backward passes at the default settings, peak memory,
+              count_params
 Then the card line from nvidia-smi, the kernels line (K1 per mode and at
 the prostate shape, the variant and ddp runs' launches (per rank) added to
 the band-delta entries by run and the host-loader runs' to the full entry;
@@ -1569,7 +1586,9 @@ def phase_host_loader(torch, np, ram_mix, png_run, prostate, prostate_root):
         torch, (card[0], {k: v.cpu() for k, v in card[1].items()}), cpu[:2])
     parity = dict(loss_max_rel=loss_rel, loss_tol=1e-5, params_max_abs=param_err, params_tol=2.5 * cfg.lr,
                   running_stats_max_abs=stat_err, stats_tol="rtol 1e-4, atol 1e-5", k1_launches=card[2],
-                  cpu_step_s=cpu_s, batch_dtypes={k: str(v.dtype) for k, v in batch.items()})
+                  cpu_step_s=cpu_s, batch_dtypes={k: str(v.dtype) for k, v in batch.items()},
+                  card_losses=card[0], cpu_losses=cpu[0], cpu_threads=torch.get_num_threads(),
+                  batch_sums={k: int(v.astype(np.int64).sum()) for k, v in batch.items()})
     parity_ok = loss_rel <= 1e-5 and param_err <= 2.5 * cfg.lr and stats_ok and card[2] == 1
 
     # prostate: phase prostate_path's slices as the .npy tree, then fit
@@ -2250,6 +2269,189 @@ def phase_ddp(torch, np, ram_mix, arrays, testset, prostate_root):
 # --- build -------------------------------------------------------------------
 
 
+# --- the model zoo and the host transform library ------------------------------
+
+ZOO_N = 16  # the reference width
+ZOO_TIMED, ZOO_WARMUP = 10, 2
+# name -> (class, forward kwargs); Unet2DMT's two heads share one model
+ZOO = (("Unet2D", "Unet2D", {}), ("Unet2DMT[seg]", "Unet2DMT", {"is_rec": False}),
+       ("Unet2DMT[rec]", "Unet2DMT", {"is_rec": True}), ("Unet2DDS[deep_sup]", "Unet2DDS", {"deep_sup": True}),
+       ("Unet2DMS[multi_scale_output]", "Unet2DMS", {"multi_scale_output": True}), ("Discriminator", "Discriminator", {}))
+ZOO_OUT_REL = 1e-5  # of the largest absolute output, as tests/test_torch_port_zoo.py
+
+
+def _heads(y):
+    return tuple(y) if isinstance(y, (tuple, list)) else (y,)
+
+
+def phase_zoo(torch, np, n=ZOO_N, batch=B, size=S, device="cuda"):
+    """The model zoo (models/unet.py) at the reference width on the card,
+    batch 16 at 256^2 (the fundus reference batch): Unet2D, Unet2DMT with
+    both heads, Unet2DDS with deep_sup, Unet2DMS with multi_scale_output,
+    and the Discriminator on the same input.  Each: one train-mode forward
+    with TF32 off beside the CPU forward of the same weights and input and
+    the float64 forward (tests/_float64_forward.py, on the card): the running
+    statistics within rtol 1e-4 / atol 1e-5 of the CPU's, every head within
+    1e-5 of the largest absolute output of the float64 forward (the CPU
+    test's rule) or, where the CPU's own float32 forward lies further from
+    it at this size, within twice the CPU's distance; then the median of 10
+    forward+backward passes (the loss: the mean of every head) on the
+    port's default settings after 2 warm-up passes, the peak memory, and
+    count_params."""
+    import copy
+
+    from ramdsir_tpu_torch.models import unet
+    from ramdsir_tpu_torch.train.loop import tf32_settings
+    from tests._float64_forward import float64_forward
+
+    t_phase = time.perf_counter()
+    x_cpu = torch.from_numpy(np.random.default_rng(11).normal(size=(batch, 3, size, size)).astype(np.float32))
+    x = x_cpu.to(device)
+    models, entries, ok = {}, {}, True
+    for name, cls, kw in ZOO:
+        if cls not in models:
+            torch.manual_seed(0)  # the Discriminator's torch-default init
+            build = getattr(unet, cls)
+            models[cls] = build(n=n) if cls == "Discriminator" else build(n=n, generator=torch.Generator().manual_seed(1))
+        model = models[cls]
+        cpu = copy.deepcopy(model).train()
+        card = copy.deepcopy(model).to(device).train()
+        with exact_float32(torch), torch.no_grad():
+            got = _heads(card(x, **kw))
+            t0 = time.perf_counter()
+            want = _heads(cpu(x_cpu, **kw))
+            cpu_s = time.perf_counter() - t0
+            exact = float64_forward(copy.deepcopy(model).to(device).train(), x, **kw)
+        scale = max(float(w.abs().max()) for w in want)
+        out_err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+        card_f64 = max(float((g.double() - e).abs().max()) for g, e in zip(got, exact))
+        cpu_f64 = max(float((w.double() - e.cpu()).abs().max()) for w, e in zip(want, exact))
+        stats = [(k, v, card.state_dict()[k].cpu()) for k, v in cpu.state_dict().items() if k.endswith(("running_mean", "running_var"))]
+        stat_err = max((float((c - v).abs().max()) for _, v, c in stats), default=0.0)
+        stats_ok = all(torch.allclose(c, v, rtol=1e-4, atol=1e-5) for _, v, c in stats)
+        shapes_ok = [tuple(g.shape) for g in got] == [tuple(w.shape) for w in want]
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        del card, cpu
+        # the timed passes: a fresh copy on the card, the port's default TF32 settings
+        timed = copy.deepcopy(model).to(device).train()
+        times = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for i in range(ZOO_WARMUP + ZOO_TIMED):
+            t0 = time.perf_counter()
+            loss = sum(h.float().mean() for h in _heads(timed(x, **kw)))
+            loss.backward()
+            torch.cuda.synchronize()
+            if i >= ZOO_WARMUP:
+                times.append(time.perf_counter() - t0)
+            timed.zero_grad(set_to_none=True)
+        peak = torch.cuda.max_memory_allocated()
+        del timed
+        entry = dict(heads=[list(g.shape) for g in got], params_m=unet.count_params(model),
+                     card_from_cpu=out_err, out_scale=scale, card_from_float64=card_f64, cpu_from_float64=cpu_f64,
+                     running_stats=len(stats), running_stats_max_abs=stat_err, cpu_forward_s=cpu_s,
+                     median_ms=1e3 * statistics.median(times), min_ms=1e3 * min(times),
+                     peak_memory_gb=peak / 1e9, peak_above_inputs_gb=(peak - base) / 1e9)
+        entries[name] = entry
+        # the CPU test's rule (within 1e-5 of the largest output of the
+        # float64 forward), or where float32 itself lies further at this
+        # size, as the CPU's float32 forward does, within twice its distance
+        out_tol = max(ZOO_OUT_REL * scale, 2.0 * cpu_f64)
+        entry["out_tol_from_float64"] = out_tol
+        if not (shapes_ok and finite and card_f64 <= out_tol and stats_ok):
+            ok = False
+    emit("zoo", n=n, batch=batch, size=size, tf32=tf32_settings(), models=entries, seconds=time.perf_counter() - t_phase)
+    if not ok:
+        raise SystemExit(f"zoo: a model on the card parts from its CPU forward: {entries}")
+    return entries
+
+
+HOST_LIB_IMAGES, HOST_LIB_SIZE, HOST_LIB_SEED = 16, (S, S), 21
+
+
+def host_library_transforms(np, T, rng):
+    """Every transform of the library, built on one Generator: name -> (the
+    call, what it takes: the sample, the multilabel, one of its planes, or
+    the image and the Generator)."""
+    size = HOST_LIB_SIZE
+    sample = {
+        "train_chain": T.Compose([T.Resize(size), T.RandomScaleCrop(size, rng)]),
+        "test_chain": T.Compose([T.Resize(size), T.Normalize()]),
+        "Resize": T.Resize(size), "RandomCrop": T.RandomCrop(size, rng), "CenterCrop": T.CenterCrop(size),
+        "RandomScaleCrop": T.RandomScaleCrop(size, rng), "Hflip": T.Hflip(rng), "RandomResize": T.RandomResize(rng=rng),
+        "ResizeRatio": T.ResizeRatio(size[0]), "Rotate": T.Rotate(rng), "Blur": T.Blur(rng),
+        "Sharpness": T.Sharpness(1.0, rng), "Solarize": T.Solarize(1.0, rng), "CutOut": T.CutOut(1.0, rng=rng),
+        "GetPair": T.GetPair(rng=rng), "Normalize": T.Normalize(),
+    }
+    out = {name: (t, "sample") for name, t in sample.items()}
+    out.update({"GetBoundary": (T.GetBoundary(), "multilabel"), "GetContourBg": (T.GetContourBg(), "multilabel"),
+                "GetBoundary_Single": (T.GetBoundary_Single(), "plane"),
+                "GetContourBg_Single": (T.GetContourBg_Single(), "plane")})
+    for name in ("image_in_painting", "image_in_painting_constant", "image_in_painting_rand_constant",
+                 "image_out_painting", "image_out_painting_constant", "image_out_painting_rand_constant"):
+        out[name] = (getattr(T, name), "image")
+    return out
+
+
+def host_library_pair(np, T, img, mask, seed, index, times=None):
+    """One pair through every transform, on its own Generator from (seed,
+    index): the outputs as a flat list of arrays; each call's seconds into
+    `times`."""
+    rng = np.random.default_rng([seed, index])
+    multilabel = T.fundus_multilabel(mask)
+    args = {"sample": lambda: {"img": img, "mask": mask}, "multilabel": lambda: multilabel,
+            "plane": lambda: multilabel[:, :, 1], "image": lambda: img}
+    outs = []
+    for name, (fn, takes) in host_library_transforms(np, T, rng).items():
+        arg = args[takes]()
+        t0 = time.perf_counter()
+        y = fn(arg, rng) if takes == "image" else fn(arg)
+        if times is not None:
+            times.setdefault(name, []).append(time.perf_counter() - t0)
+        if isinstance(y, dict):
+            outs += [np.asarray(y[k]) for k in sorted(y)]
+        else:
+            outs += [np.asarray(v) for v in (y if isinstance(y, tuple) else (y,))]
+    return outs
+
+
+def phase_host_library(np, data_root):
+    """The reference's transform library (data/transforms.py) on this
+    machine's host, which has no PIL: HOST_LIB_IMAGES of png_tree's 800^2
+    train images and masks (Domain1) through the training chain
+    Compose([Resize(256^2), RandomScaleCrop(256^2)]), the test chain
+    Compose([Resize(256^2), Normalize]) and every other transform once
+    (Sharpness, Solarize and CutOut at p = 1), each pair on its own
+    Generator from one seed.  The first run is timed transform by transform
+    (mean ms an image, host clock); a second run from the same seed, over 8
+    threads, must give every array equal."""
+    from ramdsir_tpu_torch.data import png
+    from ramdsir_tpu_torch.data import transforms as T
+    from ramdsir_tpu_torch.ops.image import convert
+
+    t_phase = time.perf_counter()
+    base = os.path.join(data_root, "fundus", "Domain1", "train")
+    pairs = [(convert(png.decode(os.path.join(base, "image", f"{i:03d}.png")), "RGB"),
+              convert(png.decode(os.path.join(base, "mask", f"{i:03d}.png")), "L")) for i in range(HOST_LIB_IMAGES)]
+    times = {}
+    first = [host_library_pair(np, T, img, mask, HOST_LIB_SEED, i, times) for i, (img, mask) in enumerate(pairs)]
+    run_s = time.perf_counter() - t_phase
+    with ThreadPoolExecutor(8) as pool:
+        second = list(pool.map(lambda a: host_library_pair(np, T, *a[1], HOST_LIB_SEED, a[0]), enumerate(pairs)))
+    equal = sum(len(a) == len(b) and all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(a, b))
+                for a, b in zip(first, second))
+    train = first[0][:2]  # train_chain's img, mask
+    chains_ok = train[0].shape == (S, S, 3) and train[0].dtype == np.uint8 and train[1].shape == (S, S)
+    ms = {name: 1e3 * statistics.mean(t) for name, t in times.items()}  # a mean: Blur and Hflip skip half the images
+    emit("host_library", images=HOST_LIB_IMAGES, source_size=list(pairs[0][0].shape), transforms=len(ms),
+         ms_per_image=ms, ms_per_image_total=sum(ms.values()), arrays_per_pair=len(first[0]),
+         runs_equal=f"{equal}/{HOST_LIB_IMAGES}", first_run_s=run_s, seconds=time.perf_counter() - t_phase)
+    if equal != HOST_LIB_IMAGES or not chains_ok:
+        raise SystemExit(f"host_library: {equal} of {HOST_LIB_IMAGES} pairs equal across two runs, chains ok {chains_ok}")
+    return ms
+
+
 def timed_call(fn):
     t0 = time.perf_counter()
     out = fn()
@@ -2404,6 +2606,8 @@ def run_phases(torch, card, name, bw):
     k2 = phase_k2(torch, bw, k2_shapes)
     _, variant_launches = phase_variants(torch, np, ram_mix, arrays, testset, prostate, data_root, runs["default"])
     _, ddp_launches = phase_ddp(torch, np, ram_mix, arrays, testset, data_root)
+    phase_host_library(np, os.path.join(PNG_OUT, "data"))
+    phase_zoo(torch, np)
 
     phase_profile(torch, ram_mix, arrays, prostate)
     phase_step_parity(torch, np, ram_mix, arrays)

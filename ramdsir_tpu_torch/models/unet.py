@@ -1,4 +1,5 @@
-"""The RAM-DSIR U-Net, NCHW (PyTorch port of `ramdsir_tpu/models/unet.py:154-405`).
+"""The RAM-DSIR U-Net and the reference's model zoo, NCHW (PyTorch port of
+`ramdsir_tpu/models/unet.py`).
 
   ConvD      down-stage: [maxpool unless first] -> conv3x3+norm ->
              conv3x3+norm+act -> conv3x3+norm+act
@@ -8,6 +9,17 @@
   Encoder    5 ConvD stages, c -> n, 2n, 4n, 8n, 16n; returns all 5 maps
   Decoder    4 ConvU stages + conv3x3 head
   RecDecoder 4 ConvURec stages from the bottleneck + conv3x3 head
+
+The zoo, which no entry point trains (in either package): `Unet2D`
+(encoder + decoder), `Unet2DMT` (one trunk, a seg head `seg1` or a
+restoration head `rec1`), `Unet2DDS` (deep supervision: side heads
+`seg2`..`seg5` upsampled x2..x16, bilinear, align_corners=False),
+`Unet2DMS` (the side heads at their own scales) and the PatchGAN
+`Discriminator`; `count_params` in millions.  Their attribute names are the
+JAX modules' names, so `utils/torch_compat.py` carries their trees both ways.
+Under torch's deterministic mode only the x2 upsample has a deterministic
+CUDA backward (kernel K2): `Unet2DDS(deep_sup=True)`'s x4..x16 heads cannot
+be differentiated on the card there.
 
 Module and attribute names equal the reference's torch modules, so its state
 dicts (`convd1.conv1.weight`, `convu4.bn1.bns.0.weight`, ...) load with
@@ -52,9 +64,9 @@ from ramdsir_tpu_torch.ops.upsample import Upsample2x
 Domain = Union[int, Sequence[int], np.ndarray]
 
 
-def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+def init_weights(module: nn.Module, generator: Optional[torch.Generator]) -> None:
     """Kaiming-normal fan-out conv weights and torch-default conv biases,
-    drawn from `generator` in module order."""
+    drawn from `generator` (torch's default one if None) in module order."""
     for m in module.modules():
         if isinstance(m, nn.Conv2d):
             nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu", generator=generator)
@@ -221,3 +233,138 @@ class RecDecoder(nn.Module):
         for stage in (self.convu4, self.convu3, self.convu2, self.convu1):
             x = stage(x, domain=domain, n_valid=n_valid)
         return self.out1(x)
+
+
+# --- the model zoo ------------------------------------------------------------
+
+
+def count_params(module: nn.Module) -> float:
+    """Parameter count in millions (buffers not counted)."""
+    return sum(p.numel() for p in module.parameters()) / 1e6
+
+
+class _ZooTrunk(nn.Module):
+    """Encoder and the four seg up-stages, named as the JAX zoo names them
+    (`encoder`, `convu4`..`convu1`); the heads belong to the variants."""
+
+    def __init__(self, c: int, n: int, norm: str, activation: str):
+        super().__init__()
+        self.encoder = Encoder(c, n, norm, activation)
+        self.convu4 = ConvU(16 * n, norm, first=True, activation=activation)
+        self.convu3 = ConvU(8 * n, norm, activation=activation)
+        self.convu2 = ConvU(4 * n, norm, activation=activation)
+        self.convu1 = ConvU(2 * n, norm, activation=activation)
+
+    def trunk(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """[y1, y2, y3, y4, x5]: the up-stages' outputs and the bottleneck."""
+        feats = self.encoder(x)
+        y4 = self.convu4(feats[-1], feats[-2])
+        y3 = self.convu3(y4, feats[-3])
+        y2 = self.convu2(y3, feats[-4])
+        y1 = self.convu1(y2, feats[-5])
+        return [y1, y2, y3, y4, feats[-1]]
+
+
+class Unet2D(nn.Module):
+    """Encoder + seg decoder (`ramdsir_tpu/models/unet.py:408-420`)."""
+
+    def __init__(self, c: int = 3, n: int = 16, norm: str = "bn", num_classes: int = 2, activation: str = "relu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.encoder = Encoder(c, n, norm, activation)
+        self.decoder = Decoder(n, num_classes, norm, activation)
+        init_weights(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.decoder(self.encoder(x))
+
+
+class Unet2DMT(_ZooTrunk):
+    """One trunk with a seg head and a restoration head
+    (`ramdsir_tpu/models/unet.py:423-444`)."""
+
+    def __init__(self, c: int = 3, n: int = 16, norm: str = "bn", num_classes: int = 2, activation: str = "relu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(c, n, norm, activation)
+        self.seg1 = _conv(2 * n, num_classes, 3)
+        self.rec1 = _conv(2 * n, c, 3)
+        init_weights(self, generator)
+
+    def forward(self, x: torch.Tensor, *, is_rec: bool = False) -> torch.Tensor:
+        y1 = self.trunk(x)[0]
+        return self.rec1(y1) if is_rec else self.seg1(y1)
+
+
+class _SideHeads(_ZooTrunk):
+    """The trunk with a seg head on y1, y2, y3, y4 and the bottleneck
+    (`seg1`..`seg5`)."""
+
+    def __init__(self, c: int, n: int, norm: str, num_classes: int, activation: str,
+                 generator: Optional[torch.Generator]):
+        super().__init__(c, n, norm, activation)
+        for i, width in enumerate((2 * n, 4 * n, 8 * n, 16 * n, 16 * n), start=1):
+            setattr(self, f"seg{i}", _conv(width, num_classes, 3))
+        init_weights(self, generator)
+
+    def heads(self, x: torch.Tensor, side: bool) -> List[torch.Tensor]:
+        maps = self.trunk(x)
+        heads = (self.seg1, self.seg2, self.seg3, self.seg4, self.seg5)
+        return [head(m) for head, m in zip(heads, maps if side else maps[:1])]
+
+
+def _upsample(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Bilinear x`scale`, align_corners=False, as jax.image.resize upsamples."""
+    if scale == 2:
+        return upsample2x(x)
+    return F.interpolate(x, scale_factor=scale, mode="bilinear", align_corners=False)
+
+
+class Unet2DDS(_SideHeads):
+    """Deep supervision (`ramdsir_tpu/models/unet.py:447-481`): with
+    deep_sup, the side heads come back upsampled to the input's size,
+    (y1, y2 x2, y3 x4, y4 x8, x5 x16)."""
+
+    def __init__(self, c: int = 3, n: int = 16, norm: str = "bn", num_classes: int = 2, activation: str = "relu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(c, n, norm, num_classes, activation, generator)
+
+    def forward(self, x: torch.Tensor, *, deep_sup: bool = False):
+        preds = self.heads(x, deep_sup)
+        if not deep_sup:
+            return preds[0]
+        return tuple([preds[0]] + [_upsample(p, 2 ** i) for i, p in enumerate(preds[1:], start=1)])
+
+
+class Unet2DMS(_SideHeads):
+    """Multi-scale output (`ramdsir_tpu/models/unet.py:484-513`): with
+    multi_scale_output, the five heads at their own scales."""
+
+    def __init__(self, c: int = 3, n: int = 16, norm: str = "bn", num_classes: int = 2, activation: str = "relu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(c, n, norm, num_classes, activation, generator)
+
+    def forward(self, x: torch.Tensor, *, multi_scale_output: bool = False):
+        preds = self.heads(x, multi_scale_output)
+        return tuple(preds) if multi_scale_output else preds[0]
+
+
+class Discriminator(nn.Module):
+    """PatchGAN discriminator (`ramdsir_tpu/models/unet.py:516-535`): 4x4
+    convs at strides 2, 2, 2, 1, 1 with padding 1, leaky ReLU 0.2,
+    InstanceNorm (no affine) after conv2..conv4, then the spatial mean,
+    (B, 1).  Its fresh weights are nn.Conv2d's default init, the reference
+    torch module's."""
+
+    def __init__(self, input_nc: int = 3, n: int = 16):
+        super().__init__()
+        widths = (input_nc, n, 2 * n, 4 * n, 8 * n, 1)
+        for i, stride in enumerate((2, 2, 2, 1, 1), start=1):
+            setattr(self, f"conv{i}", nn.Conv2d(widths[i - 1], widths[i], 4, stride=stride, padding=1))
+        self.norm2, self.norm3, self.norm4 = InstanceNorm(2 * n), InstanceNorm(4 * n), InstanceNorm(8 * n)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.leaky_relu(self.conv1(x), 0.2)
+        x = F.leaky_relu(self.norm2(self.conv2(x)), 0.2)
+        x = F.leaky_relu(self.norm3(self.conv3(x)), 0.2)
+        x = F.leaky_relu(self.norm4(self.conv4(x)), 0.2)
+        return torch.mean(self.conv5(x), dim=(2, 3))

@@ -1,4 +1,9 @@
-"""The losses the train step uses (PyTorch port of `ramdsir_tpu/ops/losses.py`).
+"""The loss library (PyTorch port of `ramdsir_tpu/ops/losses.py`): the losses
+the train step uses, and the rest of the reference's library, which no
+entry point calls (`bce_loss` on probabilities, `dice_loss1`, the entropy
+losses, the softmax dice / MSE / KL losses, `symmetric_mse_loss`,
+`focal_loss`).  Those are plain differentiable torch functions with the
+class axis last, as the JAX package's; they reduce over the local tensor.
 
 Every loss reduces over the whole batch, like the reference's torch losses
 (global sums and means, not per-sample means), so values compare
@@ -14,7 +19,8 @@ rank.  Without a group they are the plain torch reductions.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -136,3 +142,99 @@ def binary_mse_consistency(l_p: torch.Tensor, l_q: torch.Tensor) -> torch.Tensor
     logit-difference maps."""
     d = torch.sigmoid(l_p.float()) - torch.sigmoid(l_q.float())
     return _mean(torch.square(d))
+
+
+# --- the rest of the reference's loss library (no entry point calls these)
+
+
+def bce_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """nn.BCELoss on probabilities (mean); each log floored at the smallest
+    normal float32, where torch clamps it at -100."""
+    pred = pred.float()
+    target = target.float()
+    floor = 1.18e-38
+    log_p = torch.log(torch.maximum(pred, pred.new_tensor(floor)))
+    log_1p = torch.log(torch.maximum(1.0 - pred, pred.new_tensor(floor)))
+    return -torch.mean(target * log_p + (1.0 - target) * log_1p)
+
+
+def dice_loss1(score: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Soft dice with a linear denominator, smooth 1e-5."""
+    score = score.float()
+    target = target.float()
+    smooth = 1e-5
+    intersect = torch.sum(score * target)
+    return 1.0 - (2.0 * intersect + smooth) / (torch.sum(score) + torch.sum(target) + smooth)
+
+
+def _entropy(p: torch.Tensor, keepdim: bool) -> torch.Tensor:
+    p = p.float()
+    return -torch.sum(p * torch.log(p + 1e-6), dim=-1, keepdim=keepdim)
+
+
+def entropy_loss(p: torch.Tensor, num_classes: int = 2) -> torch.Tensor:
+    """Mean entropy of (..., C) probabilities over log(num_classes)."""
+    return torch.mean(_entropy(p, False) / math.log(num_classes))
+
+
+def entropy_loss_map(p: torch.Tensor, num_classes: int = 2) -> torch.Tensor:
+    """Pixelwise entropy over log(num_classes), (..., 1)."""
+    return _entropy(p, True) / math.log(num_classes)
+
+
+def entropy_minimization(p: torch.Tensor) -> torch.Tensor:
+    """Mean entropy, unnormalised."""
+    return torch.mean(_entropy(p, False))
+
+
+def entropy_map(p: torch.Tensor) -> torch.Tensor:
+    """Pixelwise entropy, unnormalised, (..., 1)."""
+    return _entropy(p, True)
+
+
+def softmax_dice_loss(input_logits: torch.Tensor, target_logits: torch.Tensor) -> torch.Tensor:
+    """Mean over classes of dice_loss1 between the two softmaxes."""
+    ps = torch.softmax(input_logits.float(), dim=-1)
+    pt = torch.softmax(target_logits.float(), dim=-1)
+    n = ps.shape[-1]
+    return sum(dice_loss1(ps[..., i], pt[..., i]) for i in range(n)) / n
+
+
+def softmax_mse_loss(input_logits: torch.Tensor, target_logits: torch.Tensor) -> torch.Tensor:
+    """(softmax(a) - softmax(b))^2, unreduced."""
+    return torch.square(torch.softmax(input_logits.float(), dim=-1) - torch.softmax(target_logits.float(), dim=-1))
+
+
+def softmax_kl_loss(input_logits: torch.Tensor, target_logits: torch.Tensor) -> torch.Tensor:
+    """Pointwise KL(target softmax || input softmax), unreduced."""
+    logp = torch.log_softmax(input_logits.float(), dim=-1)
+    pt = torch.softmax(target_logits.float(), dim=-1)
+    return torch.xlogy(pt, pt) - pt * logp
+
+
+def symmetric_mse_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Mean squared difference, with gradients to both sides."""
+    return torch.mean(torch.square(a.float() - b.float()))
+
+
+def focal_loss(
+    logits: torch.Tensor,
+    target: torch.Tensor,
+    gamma: float = 2.0,
+    alpha: Optional[Union[float, Sequence[float]]] = None,
+    size_average: bool = True,
+) -> torch.Tensor:
+    """Multi-class focal loss of (..., C) logits and integer targets: the
+    weight (1 - p_t)^gamma taken without gradient; a scalar alpha weighs
+    classes 0 and 1 by alpha and 1 - alpha."""
+    logits = logits.float().reshape(-1, logits.shape[-1])
+    target = target.reshape(-1).long()
+    logpt = torch.log_softmax(logits, dim=-1).gather(1, target[:, None])[:, 0]
+    pt = torch.exp(logpt.detach())
+    if alpha is not None:
+        a = torch.as_tensor(alpha, dtype=torch.float32, device=logits.device)
+        if a.ndim == 0:
+            a = torch.stack([a, 1.0 - a])
+        logpt = logpt * a[target]
+    loss = -((1.0 - pt) ** gamma) * logpt
+    return torch.mean(loss) if size_average else torch.sum(loss)

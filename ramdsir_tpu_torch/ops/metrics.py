@@ -1,5 +1,7 @@
-"""Eval metrics: Dice, HD95, ASD (port of the parts of
-`ramdsir_tpu/ops/metrics.py` that fundus eval uses).
+"""Eval metrics (PyTorch port of `ramdsir_tpu/ops/metrics.py`): Dice, HD95
+and ASD for eval, and the rest of the reference's metric library (Jaccard,
+ASSD, the (dc, jc, hd95, asd) quadruple, integer-mask multi-class Dice and
+the confusion-matrix IoU), all host numpy.
 
 Dice follows the reference metric library: smooth 1.0 for the per-image
 binary Dice, and the cup/disc split.  HD95 and ASD have medpy's semantics:
@@ -97,3 +99,64 @@ def hd95(result: np.ndarray, reference: np.ndarray) -> float:
 def asd(result: np.ndarray, reference: np.ndarray) -> float:
     """Average one-directional surface distance (medpy asd)."""
     return float(surface_distances(result, reference).mean())
+
+
+def jaccard_binary(pred: np.ndarray, gt: np.ndarray) -> float:
+    """medpy.metric.binary.jc semantics (0 if both are empty)."""
+    pred = np.asarray(pred, dtype=bool)
+    gt = np.asarray(gt, dtype=bool)
+    union = float(np.logical_or(pred, gt).sum())
+    if union == 0:
+        return 0.0
+    return float(np.logical_and(pred, gt).sum()) / union
+
+
+def assd(result: np.ndarray, reference: np.ndarray) -> float:
+    """Average symmetric surface distance (medpy assd)."""
+    d1 = surface_distances(result, reference)
+    d2 = surface_distances(reference, result)
+    return float(np.concatenate([d1, d2]).mean())
+
+
+def calculate_metric_percase(pred: np.ndarray, gt: np.ndarray) -> Tuple[float, float, float, float]:
+    """(dc, jc, hd95, asd) of one binary case."""
+    return dice_binary(pred, gt), jaccard_binary(pred, gt), hd95(pred, gt), asd(pred, gt)
+
+
+def dice_multi_class(pred: np.ndarray, target: np.ndarray, num_classes: int = 3, ignore_index=None) -> float:
+    """Mean over classes (but `ignore_index`) of integer-mask Dice, smooth 1e-5."""
+    smooth = 1e-5
+    count, total = 0, 0.0
+    for i in range(num_classes):
+        if i == ignore_index:
+            continue
+        count += 1
+        pi = pred == i
+        ti = target == i
+        inter = float(np.logical_and(pi, ti).sum())
+        total += (2 * inter + smooth) / (float(pi.sum()) + float(ti.sum()) + smooth)
+    return total / count
+
+
+class SegmentationMetric:
+    """Confusion-matrix IoU over integer masks (labels outside [0, C) skipped)."""
+
+    def __init__(self, num_classes: int):
+        self.num_classes = num_classes
+        self.hist = np.zeros((num_classes, num_classes), dtype=np.int64)
+
+    def update(self, pred: np.ndarray, label: np.ndarray) -> None:
+        k = (label >= 0) & (label < self.num_classes)
+        self.hist += np.bincount(
+            self.num_classes * label[k].astype(int) + pred[k].astype(int),
+            minlength=self.num_classes ** 2,
+        ).reshape(self.num_classes, self.num_classes)
+
+    def iou(self) -> np.ndarray:
+        h = self.hist.astype(np.float64)
+        denom = h.sum(1) + h.sum(0) - np.diag(h)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            return np.diag(h) / denom
+
+    def mean_iou(self) -> float:
+        return float(np.nanmean(self.iou()))

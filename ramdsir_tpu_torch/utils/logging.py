@@ -65,6 +65,9 @@ class MetricsWriter:
         self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
         self._t0 = time.time()
 
+    def add_scalar(self, tag: str, value, step: int) -> None:
+        self._jsonl.write(json.dumps({"t": round(time.time() - self._t0, 3), "step": step, tag: float(value)}) + "\n")
+
     def add_scalars(self, metrics: dict, step: int, prefix: str = "") -> None:
         rec = {"t": round(time.time() - self._t0, 3), "step": step}
         rec.update({prefix + k: float(v) for k, v in metrics.items()})

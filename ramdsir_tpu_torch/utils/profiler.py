@@ -1,5 +1,6 @@
-"""Step timing and throughput (PyTorch port of `ramdsir_tpu/utils/profiler.py:15-71`),
-and the --trace_dir profiler window (`ramdsir_tpu/train/loop.py:386-393`)."""
+"""Step timing and throughput (PyTorch port of `ramdsir_tpu/utils/profiler.py`),
+the --trace_dir profiler window (`ramdsir_tpu/train/loop.py:386-393`), and
+`trace_context`, a profiler trace around any block."""
 from __future__ import annotations
 
 import contextlib
@@ -77,6 +78,11 @@ class StepTimer:
         return self.items / self.elapsed if self._t0 and self.elapsed > 0 else 0.0
 
     @property
+    def steps_per_sec(self) -> float:
+        n = self.steps - self.warmup
+        return n / self.elapsed if self._t0 and self.elapsed > 0 else 0.0
+
+    @property
     def median_step_ms(self) -> float:
         return 1e3 * statistics.median(self.step_seconds) if self.step_seconds else 0.0
 
@@ -124,3 +130,25 @@ class TraceWindow:
         self._prof.export_chrome_trace(self.path)
         self._prof = None
         print(f"profiler trace (steps {self.FIRST}-{self._last_seen}) written to {self.path}", flush=True)
+
+
+@contextlib.contextmanager
+def trace_context(trace_dir: Optional[str]) -> Iterator[Optional[str]]:
+    """A torch.profiler trace of the block (CPU activity and, where CUDA is
+    available, the card's kernels, after a synchronise) written into
+    `trace_dir` as a Chrome trace, `trace.json`; yields its path.  With no
+    directory, a no-op that yields None."""
+    if not trace_dir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, "trace.json")
+    with profile(activities=activities) as prof:
+        yield path
+        if cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(path)

@@ -9,14 +9,16 @@ The JAX trees are nested dicts of numpy arrays, NHWC, conv kernels
 kernels (out, in, kh, kw), `bn1.weight`, `bn1.bns.{d}.weight`.
 
 Both ways: `jax_params_to_torch` / `load_jax_params` read the JAX trees,
-`torch_to_jax_params` writes them from the modules, and
+`torch_to_jax_params` writes them from the modules (the trainer's
+{encoder, seg_decoder, rec_decoder}, or one zoo model of `models/unet.py`,
+whose tree is its own: `Discriminator`'s InstanceNorms have no entry), and
 `torch_adam_to_jax` / `jax_adam_to_torch` carry Adam's moments as optax's
 `ScaleByAdamState` ({count, mu, nu}, the moments in the params tree's
 layout; count is torch's per-parameter `step`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -88,10 +90,14 @@ def jax_params_to_torch(params: Mapping, batch_stats: Mapping) -> Dict[str, Dict
     }
 
 
-def load_jax_params(models: Mapping[str, nn.Module], params: Mapping, batch_stats: Mapping) -> None:
+def load_jax_params(models: Union[nn.Module, Mapping[str, nn.Module]], params: Mapping, batch_stats: Mapping) -> None:
     """Load the JAX trees into `models` in place, strictly per module;
     modules that were not built (the eval CLIs build no rec decoder) are
-    not read."""
+    not read.  `models` one module (a zoo model): the trees are that
+    module's own, {encoder, decoder, ...}."""
+    if isinstance(models, nn.Module):
+        models = {"model": models}
+        params, batch_stats = {"model": params}, {"model": batch_stats}
     sds = jax_params_to_torch({name: params[name] for name in models}, batch_stats)
     for name, module in models.items():
         module.load_state_dict(sds[name], strict=True)
@@ -145,9 +151,12 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def torch_to_jax_params(models: Mapping[str, nn.Module]) -> Tuple[Dict, Dict]:
+def torch_to_jax_params(models: Union[nn.Module, Mapping[str, nn.Module]]) -> Tuple[Dict, Dict]:
     """The modules -> the JAX TrainState's (params, batch_stats) trees of
-    numpy arrays, keyed as `ramdsir_tpu.train.state.init_state` keys them."""
+    numpy arrays, keyed as `ramdsir_tpu.train.state.init_state` keys them;
+    one module (a zoo model) -> its own trees."""
+    if isinstance(models, nn.Module):
+        return _module_to_flax(models, {k: _numpy(v) for k, v in models.state_dict().items()})
     params, batch_stats = {}, {}
     for name, module in models.items():
         sd = {k: _numpy(v) for k, v in module.state_dict().items()}

@@ -1,8 +1,13 @@
-"""Contour overlays of eval predictions (port of `save_per_img` and what it
-needs from `ramdsir_tpu/utils/viz.py:31-142`, and `untransform_prostate`).
+"""Result visualisation (PyTorch port of `ramdsir_tpu/utils/viz.py`): the
+contour overlays of the eval CLIs' --save_result, the JET heatmaps of
+entropy and probability maps, boundary maps, and the untransforms.
 
-Used by the eval CLIs' --save_result; the overlays are written by the
-port's own PNG encoder (`data/png.py`).
+Every file is written by the port's own PNG encoder (`data/png.py`).  The
+heatmaps are the JAX package's `cv2.applyColorMap(u8, COLORMAP_JET)`:
+`JET_BGR` is OpenCV's JET table rebuilt from its definition (the GNU Octave
+jet breakpoints at i / 255, as float32, interpolated by OpenCV's interp1 in
+float32 and scaled to uint8 with round-half-even), equal to cv2 5.0.0's for
+all 256 values.  As in the JAX package, the BGR rows are saved as if RGB.
 """
 from __future__ import annotations
 
@@ -11,12 +16,22 @@ from typing import Optional
 
 import numpy as np
 
+from ramdsir_tpu_torch.data import png
+
 GREEN = np.array([0, 255, 0], np.float32)
 BLUE = np.array([0, 0, 255], np.float32)
 RED = np.array([255, 0, 0], np.float32)  # ground-truth contour
 
 # the reference's 7-point stamp around every contour point (~3 px lines)
 _STAMP_OFFSETS = ((0, 0), (1, 0), (1, 1), (0, 1), (-1, 0), (-1, -1), (0, -1))
+
+
+def mask_contour(mask: np.ndarray) -> np.ndarray:
+    """Binary 1-px boundary: the mask minus its erosion."""
+    from scipy import ndimage
+
+    m = np.asarray(mask).astype(bool)
+    return m & ~ndimage.binary_erosion(m, border_value=0)
 
 
 def _contour_points(mask: np.ndarray) -> np.ndarray:
@@ -94,12 +109,72 @@ def save_per_img(
     gt: Optional[np.ndarray] = None,
 ) -> str:
     """Write the overlay as `<output_dir>/<image stem>.png`; returns the path."""
-    from ramdsir_tpu_torch.data import png
-
     os.makedirs(output_dir, exist_ok=True)
     base = os.path.splitext(os.path.basename(str(name).split(" ")[0]))[0]
     path = os.path.join(output_dir, f"{base}.png")
     return png.write(path, overlay_contours(img, pred, gt))
+
+
+def _jet_bgr() -> np.ndarray:
+    """OpenCV's COLORMAP_JET lookup table, (256, 3) uint8 in BGR order."""
+    e = 8 * np.arange(256)  # 8x at x = i / 255, against the breakpoints' 255 * (1, 3, 5, 7)
+    piece = lambda lo, hi: (e >= lo) & (e < hi)
+    # each channel at the 256 breakpoints, in units of 1 / 510
+    r = np.select([piece(765, 1275), piece(1275, 1785), e >= 1785], [e - 765, 510, 2295 - e], 0)
+    g = np.select([piece(255, 765), piece(765, 1275), piece(1275, 1785)], [e - 255, 510, 1785 - e], 0)
+    b = np.select([e < 255, piece(255, 765), piece(765, 1275)], [e + 255, 510, 1275 - e], 0)
+    base = (np.stack([b, g, r], 1) / 510).astype(np.float32)
+    f = np.float32
+    step = f(1) / f(255)
+    x = f(0) + np.arange(256, dtype=np.float32) * step  # OpenCV's linspace, float32
+    table = base.copy()  # interp1 at its own breakpoints: sample i from (i - 1, i)
+    dx = (x[1:] - x[:-1])[:, None]
+    table[1:] = base[:-1] + dx * (base[1:] - base[:-1]) / dx
+    return np.clip(np.rint(table * f(255)), 0, 255).astype(np.uint8)
+
+
+JET_BGR = _jet_bgr()
+
+
+def construct_color_img(prob_per_slice: np.ndarray) -> np.ndarray:
+    """JET heatmap (H, W, 3) uint8, BGR, of an (H, W) map scaled to its own
+    min and max."""
+    p = np.asarray(prob_per_slice, np.float32)
+    lo, hi = float(p.min()), float(p.max())
+    u8 = ((p - lo) / max(hi - lo, 1e-12) * 255).astype(np.uint8)
+    return JET_BGR[u8]
+
+
+def entropy_map(probs: np.ndarray, axis: int = -1, eps: float = 1e-6) -> np.ndarray:
+    """Pixelwise prediction entropy, float64."""
+    p = np.asarray(probs, np.float64)
+    return -(p * np.log(p + eps)).sum(axis=axis)
+
+
+def _write(output_dir: str, name: str, suffix: str, array: np.ndarray) -> str:
+    os.makedirs(output_dir, exist_ok=True)
+    return png.write(os.path.join(output_dir, f"{os.path.splitext(name)[0]}_{suffix}.png"), array)
+
+
+def draw_ent(probs: np.ndarray, output_dir: str, name: str) -> str:
+    """`<name stem>_ent.png`: the heatmap of the entropy over the last axis."""
+    return _write(output_dir, name, "ent", construct_color_img(entropy_map(probs)))
+
+
+def draw_mask(probs: np.ndarray, output_dir: str, name: str) -> str:
+    """`<name stem>_mask.png`: the heatmap of the foreground (last) channel."""
+    p = np.asarray(probs)
+    return _write(output_dir, name, "mask", construct_color_img(p[..., -1] if p.ndim == 3 else p))
+
+
+def draw_boundary(mask: np.ndarray, output_dir: str, name: str) -> str:
+    """`<name stem>_boundary.png`: the mask's 1-px contour, 0 / 255 gray."""
+    return _write(output_dir, name, "boundary", (mask_contour(mask) * 255).astype(np.uint8))
+
+
+def untransform(img: np.ndarray) -> np.ndarray:
+    """[-1, 1] -> [0, 255] (reference dataset/utils.py:13-16)."""
+    return (np.asarray(img, np.float32) + 1.0) * 127.5
 
 
 def untransform_prostate(img: np.ndarray) -> np.ndarray:

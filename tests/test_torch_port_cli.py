@@ -332,17 +332,23 @@ def test_fundus_drive_without_pil_or_cv2(tmp_path):
 
 
 def test_port_imports_no_jax_and_no_reference_package():
-    """Import every module of ramdsir_tpu_torch in a fresh interpreter (the
-    test process has JAX loaded already) and list what came in."""
+    """Import every module of ramdsir_tpu_torch, and every name its packages
+    re-export, in a fresh interpreter (the test process has JAX loaded
+    already) with PIL and cv2 blocked, as on the card, and list what came
+    in."""
     code = r"""
 import importlib, pkgutil, sys
+sys.modules["PIL"] = None  # the card has neither: any import of them raises
+sys.modules["cv2"] = None
 import ramdsir_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(ramdsir_tpu_torch.__path__, "ramdsir_tpu_torch.")]
 for n in names:
-    importlib.import_module(n)
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "ramdsir_tpu", "PIL", "cv2",
-                                    "tensorboard", "tensorboardX"))
+    mod = importlib.import_module(n)
+    for export in getattr(mod, "_EXPORTS", ()):
+        getattr(mod, export)
+bad = sorted(m for m in sys.modules if sys.modules[m] is not None and
+             m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "ramdsir_tpu", "PIL", "cv2",
+                                 "tensorboard", "tensorboardX"))
 print(names)
 print(bad)
 """
@@ -354,7 +360,8 @@ print(bad)
                 "train.checkpoint", "utils.viz", "cli.test_fundus_slice", "data.nifti", "data.prostate",
                 "cli.test_prostate_volume", "utils.msgpack", "data.png", "ops.image", "ops.upsample",
                 "ops.cuda_build", "utils.profiler", "models.norm", "data.transforms", "utils.logging",
-                "parallel.mesh", "parallel.distributed"):
+                "parallel.mesh", "parallel.distributed", "utils.nn_utils", "utils.data_utils", "utils.od_coords",
+                "models.unet", "ops.losses", "utils.torch_compat"):
         assert f"ramdsir_tpu_torch.{new}" in names, new
     assert bad == [], bad
 

@@ -11,6 +11,7 @@ import pickle
 import subprocess
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -271,10 +272,41 @@ def test_rows_slice_equals_jax_and_the_full_build(trees):
         assert_items_equal(g, {k: v[3:7] for k, v in f.items()})
 
 
+def _producers_settled(started):
+    """True when every DataLoader producer thread in `started` has stopped
+    drawing: it has ended, or it waits in Queue.put on a full queue (with
+    its consumer gone, nothing takes from it; the JAX package's producer
+    stays blocked there)."""
+    frames = sys._current_frames()
+    for t in started:
+        frame = frames.get(t.ident) if t.is_alive() else None
+        while frame is not None and not (frame.f_code.co_name == "put" and frame.f_code.co_filename.endswith("queue.py")):
+            frame = frame.f_back
+        if t.is_alive() and (frame is None or not frame.f_locals["self"].full()):
+            return False
+    return True
+
+
+def _settle_producers(before, timeout=60.0):
+    """Wait until the DataLoader producers started since `before` (a set of
+    threads) have stopped drawing.  A pass of MultiDomainIterator leaves a
+    wrapped loader's next-epoch producer prefetching; it draws donors from
+    the same dataset Generator as the next pass's producer, in either
+    package, so the order of their draws would depend on thread timing."""
+    started = [t for t in threading.enumerate() if t not in before and t.name.endswith("(producer)")]
+    deadline = time.monotonic() + timeout
+    while not _producers_settled(started):
+        assert time.monotonic() < deadline, f"loader producers still drawing after {timeout} s"
+        time.sleep(0.01)
+
+
 def test_dataloader_and_multidomain_iterator_equal_jax(trees):
     """Per-domain DataLoaders (one worker thread, so the datasets' own
-    Generators draw in order) zipped by MultiDomainIterator: the same
-    batches, the cycling of the shorter loaders, concat_domain_batches."""
+    Generators draw in order) zipped by MultiDomainIterator over two passes:
+    the same batches, the cycling of the shorter loaders across the pass
+    boundary, concat_domain_batches.  Each pass's abandoned prefetching
+    producers stop drawing before the next pass starts (_settle_producers),
+    in both packages."""
     base = trees[0]
 
     def iterate(mod, cls, aug):
@@ -282,12 +314,22 @@ def test_dataloader_and_multidomain_iterator_equal_jax(trees):
                for i, (ds, bs) in enumerate(zip(fundus_datasets(base, cls, aug), [2, 3, 2]))]
         it = mod.MultiDomainIterator(dls)
         assert len(it) == 3 and [len(dl) for dl in dls] == [3, 2, 3]
-        return [mod.concat_domain_batches(step, KEYS + ("domain",)) for _ in range(2) for step in it]
+        steps = []
+        for _ in range(2):
+            before = set(threading.enumerate())
+            steps += [mod.concat_domain_batches(step, KEYS + ("domain",)) for step in it]
+            _settle_producers(before)
+        return steps
 
     got, want = iterate(loaders, FundusMultiDataset, ScaleCropAug), iterate(jloaders, JFundusMultiDataset, JScaleCropAug)
     assert len(got) == 6
     for g, w in zip(got, want):
         assert_items_equal(g, w)
+    # domain 1 (3 rows, 2 batches an epoch) wraps at each pass's third step
+    # and starts a reshuffled epoch at each pass
+    d1 = slice(2, 5)
+    for i, j in ((0, 2), (0, 3), (2, 5)):
+        assert not np.array_equal(got[i]["img"][d1], got[j]["img"][d1]), (i, j)
     ds = fundus_datasets(base, FundusMultiDataset, ScaleCropAug)[0]
     tail = list(loaders.DataLoader(ds, 3, shuffle=False, drop_last=False, num_workers=1))
     assert [len(b["img"]) for b in tail] == [3, 3, 1]
