@@ -4,8 +4,8 @@
 Phases, one JSON line each (any failure raises and exits non-zero, with no
 result line):
   device      the card, its power limit, the TF32 settings
-  build       K1 (csrc/ram_mix.cu) and K2 (csrc/upsample2x.cu) compiled with
-              nvcc for sm_90a, the host post-processing library
+  build       K1 (csrc/ram_mix.cu) and K2 and K3 (csrc/upsample2x.cu)
+              compiled with nvcc for sm_90a, the host post-processing library
               (native/postproc.cpp) and the PNG unfilter (native/png.cpp)
               with g++, all started together, beside ptxas's registers
   cuda_tests  the card tests (tests/test_torch_port_cuda.py, marker cuda) in
@@ -110,12 +110,15 @@ result line):
               --deterministic: fundus and prostate, float32 and bfloat16,
               fit runs of 8 steps without, with, with and without the mode:
               the two with it bit-equal (state, Adam moments, losses), K2
-              launches 8 a step and none in eval or without the mode; two
+              launches 8 a step and none in eval or without the mode, K3
+              (the forward) 8 a training step, 4 an eval batch, none
+              without the mode; two
               steps from one re-loaded state bit-equal; the mode's cost in
               median step time
   k2          K2 against its plain version (bit-equal) and torch's atomics
               backward at every shape and dtype of those steps, with `ms`,
-              `kernel_ms`, plain and library times and the bytes bound
+              `kernel_ms`, plain and library times and the bytes bound; K3
+              (lines `k3`) the same against aten's forward
   variants    the single-card training variants at the reference widths,
               each a `fit` of 8 steps (13 for the trace) with its eval, K1
               held to its plain version at every call and launched once a
@@ -179,8 +182,8 @@ result line):
 Then the card line from nvidia-smi, the kernels line (K1 per mode and at
 the prostate shape, the variant and ddp runs' launches (per rank) added to
 the band-delta entries by run and the host-loader runs' to the full entry;
-K2 summed over a deterministic step's 8 launches for each
-run, and at the largest shape), and the result line.
+K2 and K3 each summed over a deterministic step's 8 launches for
+each run, and at the largest shape), and the result line.
 Run artefacts go to chiprun_out/chip_smoke/ (prostate: chip_smoke/prostate/);
 the .pth and .ckpt files, the NIfTI volumes, the PNGs and the .npy slices are
 deleted at exit.
@@ -1213,6 +1216,7 @@ def set_exact_float32(torch):
 KERNEL_GROUPS = [  # (group, substrings of CUDA kernel names), first match wins
     ("K1 ram_mix", ("mix_full_vec_kernel", "mix_delta_flat_kernel", "mix_strided_kernel")),
     ("K2 upsample2x_backward", ("upsample2x_backward_kernel",)),
+    ("K3 upsample2x_forward", ("upsample2x_forward_kernel",)),
     ("fft", ("fft", "radix", "regular_fft", "vector_fft")),
     ("batch_norm", ("batch_norm", "bn_", "welford")),
     ("layout nchw<->nhwc", ("nchwToNhwc", "nhwcToNchw")),
@@ -1226,7 +1230,7 @@ KERNEL_GROUPS = [  # (group, substrings of CUDA kernel names), first match wins
 def phase_profile(torch, ram_mix, arrays, prostate, steps=5, warmup=3):
     """Where a default fundus step's and a prostate step's device time goes,
     in float32 and in bfloat16, and a fundus float32 step under
-    deterministic_mode (K2 for the upsample's backward): torch.profiler over
+    deterministic_mode (K3 and K2 for the upsample): torch.profiler over
     `steps` steps after `warmup`, each step synchronised as `fit` does."""
     from ramdsir_tpu_torch.config import TrainConfig
     from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline, DeviceProstatePipeline
@@ -1630,21 +1634,28 @@ def k2_bytes(shape, itemsize):
     return itemsize * (4 * n * c * h * w + n * c * h * w)
 
 
-def phase_k2(torch, bw, shapes):
+def phase_k2(torch, bw, shapes, forward_shapes):
     """K2 against its plain version on the card at each (shape, dtype) a
     deterministic step gives it, bit for bit, and against torch's own
     upsample_bilinear2d backward (atomics, another summation order) of the
     same gradient in float32; beside it, torch's backward in the gradient's
     own dtype (in bfloat16 its atomics round every add); at
     each: `ms` as K1's, `kernel_ms`, the plain version's and the
-    library call's times, and the bytes bound.  K2's `kernel_ms` is
+    library call's times (`library_kernel_ms` back to back, as
+    `kernel_ms`), and the bytes bound.  K2's `kernel_ms` is
     `back_to_back_ms` (torch.profiler dropped some of K2's kernels on the
-    card: it saw 13 of 20)."""
+    card: it saw 13 of 20).  Then K3 the same way at each (shape, dtype) of
+    the forward (lines `k3`), against its plain version bit for bit and
+    against aten's forward (upsample_bilinear2d.vec, which contracts to FMA
+    where K3 rounds every product): within 1e-6 of the input's largest
+    element in float32, and a bfloat16 result within 2^-8 of aten's float32
+    forward of the same input (one rounding).  Returns the K2 and K3 cases."""
     from ramdsir_tpu_torch.ops import upsample
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     flush = lambda: flush_buf.zero_()
+    dtype_name = lambda dtype: str(dtype).split(".")[-1]
     out = {}
     for shape, dtype in shapes:
         n, c, h, w = shape
@@ -1660,13 +1671,14 @@ def phase_k2(torch, bw, shapes):
         err = float((got.float() - want.float()).abs().max())
         lib_err = float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
         lib32_err = float((got.float() - ref32).abs().max() / ref32.abs().max())
-        key = f"{'x'.join(map(str, shape))}:{str(dtype).split('.')[-1]}"
-        entry = dict(shape=list(shape), dtype=str(dtype).split(".")[-1], max_abs_err=err, bit_equal=err == 0.0,
+        key = f"{'x'.join(map(str, shape))}:{dtype_name(dtype)}"
+        entry = dict(shape=list(shape), dtype=dtype_name(dtype), max_abs_err=err, bit_equal=err == 0.0,
                      library_max_rel_err=lib_err, float32_library_max_rel_err=lib32_err,
+                     vector_path=upsample.vector_path(g, got),
                      ms=cuda_time_ms(lambda: upsample.upsample2x_backward(g), reps=20, flush=flush),
                      kernel_ms=back_to_back_ms(lambda: upsample.upsample2x_backward(g)),
                      plain_ms=cuda_time_ms(lambda: upsample.upsample2x_backward_plain(g), reps=10, flush=flush),
-                     library_ms=cuda_time_ms(lib, reps=20, flush=flush),
+                     library_ms=cuda_time_ms(lib, reps=20, flush=flush), library_kernel_ms=back_to_back_ms(lib),
                      bound_ms=1e3 * k2_bytes(shape, g.element_size()) / bw, bound_by="bytes")
         emit("k2", case=key, **entry)
         # against torch's float32 backward of the same gradient: float32 sums in
@@ -1674,7 +1686,34 @@ def phase_k2(torch, bw, shapes):
         if not entry["bit_equal"] or lib32_err > (1e-5 if dtype == torch.float32 else 2.0**-8):
             raise SystemExit(f"K2 at {key}: {err} from its plain version, {lib32_err} from torch's float32 backward")
         out[key] = entry
-    return out
+    out3 = {}
+    for shape, dtype in forward_shapes:
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        before = upsample.forward_launches
+        got = upsample.upsample2x_forward(x)
+        want = upsample.upsample2x_forward_plain(x)
+        lib = lambda t=x: torch.ops.aten.upsample_bilinear2d.vec(t, None, False, [2.0, 2.0])
+        ref, ref32 = lib(), lib(x.float())
+        torch.cuda.synchronize()
+        if upsample.forward_launches != before + 1:
+            raise SystemExit(f"K3 at {shape}: {upsample.forward_launches - before} launches for one call")
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(x.float().abs().max()) if dtype == torch.float32 else float(ref32.abs().max())
+        lib32_err = float((got.float() - ref32).abs().max()) / scale
+        key = f"{'x'.join(map(str, shape))}:{dtype_name(dtype)}"
+        entry = dict(shape=list(shape), dtype=dtype_name(dtype), max_abs_err=err, bit_equal=err == 0.0,
+                     library_max_rel_err=float((got.float() - ref.float()).abs().max() / ref.float().abs().max()),
+                     float32_library_max_rel_err=lib32_err, vector_path=upsample.vector_path(x, got),
+                     ms=cuda_time_ms(lambda: upsample.upsample2x_forward(x), reps=20, flush=flush),
+                     kernel_ms=back_to_back_ms(lambda: upsample.upsample2x_forward(x)),
+                     plain_ms=cuda_time_ms(lambda: upsample.upsample2x_forward_plain(x), reps=10, flush=flush),
+                     library_ms=cuda_time_ms(lib, reps=20, flush=flush), library_kernel_ms=back_to_back_ms(lib),
+                     bound_ms=1e3 * k2_bytes(shape, x.element_size()) / bw, bound_by="bytes")
+        emit("k3", case=key, **entry)
+        if not entry["bit_equal"] or lib32_err > (1e-6 if dtype == torch.float32 else 2.0**-8):
+            raise SystemExit(f"K3 at {key}: {err} from its plain version, {lib32_err} from aten's float32 forward")
+        out3[key] = entry
+    return out, out3
 
 
 def _same_tree(np, x, y):
@@ -1693,27 +1732,43 @@ def phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, prostate_
     bit-equal parameters, BN statistics and Adam moments (their
     final_model.ckpt) and log bit-equal losses; K2 launches 8 a step with
     --rec and none in eval (launches == 8 x steps), none without the mode;
+    K3 (the forward) launches 8 a training step (counted apart from eval,
+    where it launches 4 an eval batch) and none without the mode;
     K1 launches == steps in every run.  Two steps from one re-loaded state
     under the mode are bit-equal (without it they part by ~9e-6: the
     atomics of torch's upsample backward).
-    Every (shape, dtype) K2 met then goes through phase_k2."""
+    Every (shape, dtype) K2 and K3 met then goes through phase_k2."""
     import dataclasses
 
     from ramdsir_tpu_torch.config import TrainConfig
     from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline, DeviceProstatePipeline
     from ramdsir_tpu_torch.ops import upsample
+    from ramdsir_tpu_torch.train import loop
     from ramdsir_tpu_torch.train.checkpoint import read_checkpoint
     from ramdsir_tpu_torch.train.loop import deterministic_mode, fit
     from ramdsir_tpu_torch.train.steps import sample_step_draws
 
-    shapes, runs = [], {}
-    record = upsample.upsample2x_backward
+    shapes, forward_shapes, runs, eval_k3, in_eval = [], [], {}, [0], [False]
+    record, record_forward, evaluate = upsample.upsample2x_backward, upsample.upsample2x_forward, loop.evaluate_target
 
     def recording(grad):
         key = (tuple(grad.shape[:2]) + (grad.shape[2] // 2, grad.shape[3] // 2), grad.dtype)
         if key not in shapes:
             shapes.append(key)
         return record(grad)
+
+    def recording_forward(x):  # the training steps' shapes only
+        if not in_eval[0] and (tuple(x.shape), x.dtype) not in forward_shapes:
+            forward_shapes.append((tuple(x.shape), x.dtype))
+        return record_forward(x)
+
+    def counting_eval(*args, **kwargs):  # K3's launches in eval, apart from the steps'
+        before, in_eval[0] = upsample.forward_launches, True
+        try:
+            return evaluate(*args, **kwargs)
+        finally:
+            eval_k3[0] += upsample.forward_launches - before
+            in_eval[0] = False
 
     for dataset, bf16 in (("fundus", False), ("fundus", True), ("prostate", False), ("prostate", True)):
         name = dataset + ("_bf16" if bf16 else "")
@@ -1733,12 +1788,15 @@ def phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, prostate_
         for rep in DET_RUNS:
             cfg = dataclasses.replace(cfg0, save_path=os.path.join(root, rep), deterministic=rep.startswith("det"))
             shutil.rmtree(cfg.save_path, ignore_errors=True)
-            ram_mix.launches, upsample.launches = 0, 0
-            with mock.patch.object(upsample, "upsample2x_backward", recording):
+            ram_mix.launches, upsample.launches, upsample.forward_launches, eval_k3[0] = 0, 0, 0, 0
+            with mock.patch.object(upsample, "upsample2x_backward", recording), \
+                    mock.patch.object(upsample, "upsample2x_forward", recording_forward), \
+                    mock.patch.object(loop, "evaluate_target", counting_eval):
                 summary = fit(cfg, max_steps=DET_STEPS, pipeline=make_pipe(cfg), testset=data)
             sync(torch)
             rows = [json.loads(line) for line in open(os.path.join(cfg.save_path, "log", "metrics.jsonl"))]
             out[rep] = dict(summary=summary, k1=ram_mix.launches, k2=upsample.launches,
+                            k3=upsample.forward_launches - eval_k3[0], k3_eval=eval_k3[0],
                             losses=[{k: v for k, v in r.items() if k.startswith("loss/")} for r in rows if "loss/loss" in r],
                             state=read_checkpoint(summary["resume_checkpoint"])["state"])
         a, b = out["deterministic"], out["deterministic_again"]
@@ -1760,6 +1818,8 @@ def phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, prostate_
         entry = dict(run=name, steps=DET_STEPS, state_tensors_bit_equal=state_equal, losses_bit_equal=losses_equal,
                      k1_launches={rep: out[rep]["k1"] for rep in DET_RUNS},
                      k2_launches={rep: out[rep]["k2"] for rep in DET_RUNS},
+                     k3_launches={rep: out[rep]["k3"] for rep in DET_RUNS},
+                     k3_eval_launches={rep: out[rep]["k3_eval"] for rep in DET_RUNS},
                      median_step_ms=med, mode_cost_ms=on - off, mode_cost_share=(on - off) / off,
                      reloaded_step_params_max_abs=param_err, reloaded_step_losses_max_rel=loss_rel,
                      reloaded_step_running_stats_max_abs=stat_err,
@@ -1773,10 +1833,14 @@ def phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, prostate_
         want_k2 = {rep: 8 * DET_STEPS if rep.startswith("det") else 0 for rep in DET_RUNS}
         if entry["k2_launches"] != want_k2:
             raise SystemExit(f"deterministic {name}: K2 launches {entry['k2_launches']}, expected {want_k2}")
+        if entry["k3_launches"] != want_k2:
+            raise SystemExit(f"deterministic {name}: K3 launches in training {entry['k3_launches']}, expected {want_k2}")
+        if any((n > 0 and n % 4 == 0) != rep.startswith("det") for rep, n in entry["k3_eval_launches"].items()):
+            raise SystemExit(f"deterministic {name}: K3 launches in eval {entry['k3_eval_launches']}, expected 4 a batch")
         if param_err != 0.0 or loss_rel != 0.0 or stat_err != 0.0 or entry["deterministic_after"]:
             raise SystemExit(f"deterministic {name}: two steps from one re-loaded state differ: {entry}")
         runs[name] = entry
-    return runs, shapes
+    return runs, shapes, forward_shapes
 
 
 # --- the single-card training variants ------------------------------------------------
@@ -1826,7 +1890,8 @@ def variant_fit(torch, np, ram_mix, name, cfg, pipe, steps, testset=None):
     """`fit` for `steps` steps (one eval at the end of each epoch and at the
     last step) with K1 held to its plain version in the untimed warm-up
     steps: the run's entry.  Losses finite every step, K1 launches ==
-    steps, bit-equal."""
+    steps, bit-equal.  K2's and K3's launches (eval included) are reported."""
+    from ramdsir_tpu_torch.ops import upsample
     from ramdsir_tpu_torch.train.loop import fit
     from ramdsir_tpu_torch.utils.profiler import StepTimer
 
@@ -1834,7 +1899,7 @@ def variant_fit(torch, np, ram_mix, name, cfg, pipe, steps, testset=None):
     sync(torch)
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    ram_mix.launches = 0
+    ram_mix.launches, upsample.launches, upsample.forward_launches = 0, 0, 0
     errs = []
     t0 = time.perf_counter()
     checked = StepTimer().warmup
@@ -1847,7 +1912,8 @@ def variant_fit(torch, np, ram_mix, name, cfg, pipe, steps, testset=None):
     finite = len(losses) == steps and all(np.all(np.isfinite(list(r.values()))) for r in losses)
     evals = [r["eval/avg_dice"] for r in rows if "eval/avg_dice" in r]
     entry = dict(
-        run=name, steps=summary["steps"], k1_launches=ram_mix.launches,
+        run=name, steps=summary["steps"], k1_launches=ram_mix.launches, k2_launches=upsample.launches,
+        k3_launches=upsample.forward_launches,
         k1_max_abs_err=max(float(e) for e in errs) if errs else None, k1_checked_steps=checked,
         losses_finite=finite,
         first_loss=losses[0]["loss/loss"], last_loss=losses[-1]["loss/loss"],
@@ -2459,7 +2525,7 @@ def timed_call(fn):
 
 
 def phase_build(ram_mix, upsample, native):
-    """Build K1's and K2's libraries and the two host libraries and, beside
+    """Build K1's and K2/K3's libraries and the two host libraries and, beside
     them, ask ptxas for each kernel's registers and spills (four nvcc and two
     g++ processes, started together)."""
     t0 = time.perf_counter()
@@ -2491,12 +2557,12 @@ def phase_build(ram_mix, upsample, native):
     info, kernel = {}, None
     for ln in ptxas_out.splitlines():
         if "Compiling entry function" in ln:
-            found = re.search(r"(mix_[a-z_]+?_kernel|upsample2x_backward_kernel)", ln)
+            found = re.search(r"(mix_[a-z_]+?_kernel|upsample2x_(?:backward|forward)_kernel)", ln)
             kernel = found.group(0) if found else ln.strip()
             if kernel.startswith("mix_"):
                 kernel += "<full>" if "ILb1E" in ln else "<delta>" if "ILb0ELb1E" in ln else "<band>" if "ILb0ELb0E" in ln else ""
-            else:
-                kernel += "<bfloat16>" if "bfloat16" in ln else "<float32>"
+            elif found:  # <dtype, V, vector path>
+                kernel += ("<bfloat16" if "bfloat16" in ln else "<float32") + (", vector>" if "Lb1E" in ln else ", scalar>")
         elif kernel and ("registers" in ln or "spill" in ln):
             info.setdefault(kernel, []).append(ln.split(":", 1)[-1].strip())
     emit("build", library=os.path.relpath(done["k1"][0], REPO), seconds=time.perf_counter() - t0,
@@ -2602,8 +2668,8 @@ def run_phases(torch, card, name, bw):
     phase_prostate_eval_cli(torch, np, data_root)
     png_run = phase_png_tree(torch, np, ram_mix)
     host_runs = phase_host_loader(torch, np, ram_mix, png_run, prostate, data_root)
-    det_runs, k2_shapes = phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, data_root)
-    k2 = phase_k2(torch, bw, k2_shapes)
+    det_runs, k2_shapes, k3_shapes = phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, data_root)
+    k2, k3 = phase_k2(torch, bw, k2_shapes, k3_shapes)
     _, variant_launches = phase_variants(torch, np, ram_mix, arrays, testset, prostate, data_root, runs["default"])
     _, ddp_launches = phase_ddp(torch, np, ram_mix, arrays, testset, data_root)
     phase_host_library(np, os.path.join(PNG_OUT, "data"))
@@ -2647,28 +2713,33 @@ def run_phases(torch, card, name, bw):
         "floor_ms": k["floor_ms"], "kernel_ms": k["kernel_ms"], "ms_clean_flush": k["ms_clean_flush"],
         "floor_ms_clean_flush": k["floor_ms_clean_flush"], "path": k["path"],
     })
-    # K2: the sum over the 8 launches of one deterministic step (each shape
-    # once a step), for each run, and the largest shape alone
-    for run, det in det_runs.items():
-        dtype = "bfloat16" if run.endswith("bf16") else "float32"
-        step_cases = [k2[f"{'x'.join(map(str, shape))}:{dtype}"] for shape, dt in k2_shapes
-                      if str(dt).endswith(dtype) and (shape[0] in (B, 2 * B)) == run.startswith("fundus")]
-        if len(step_cases) != 8:
-            raise SystemExit(f"K2: {len(step_cases)} shapes in a {run} step, expected 8")
-        total = lambda key: sum(c[key] for c in step_cases)
+    # K2 and K3: the sum over the 8 launches of one deterministic step (each
+    # shape once a step), for each run, and the largest shape alone
+    for kernel, cases, shapes, launches in (("upsample2x_backward", k2, k2_shapes, "k2_launches"),
+                                            ("upsample2x_forward", k3, k3_shapes, "k3_launches")):
+        for run, det in det_runs.items():
+            dtype = "bfloat16" if run.endswith("bf16") else "float32"
+            step_cases = [cases[f"{'x'.join(map(str, shape))}:{dtype}"] for shape, dt in shapes
+                          if str(dt).endswith(dtype) and (shape[0] in (B, 2 * B)) == run.startswith("fundus")]
+            if len(step_cases) != 8:
+                raise SystemExit(f"{kernel}: {len(step_cases)} shapes in a {run} step, expected 8")
+            total = lambda key: sum(c[key] for c in step_cases)
+            line["kernels"].append({
+                "name": f"{kernel}[{run} step: 8 shapes]", "route": "cuda", "source": SOURCE_K2,
+                "replaces": REPLACES_K2, "launches": det[launches]["deterministic"],
+                "max_abs_err": max(c["max_abs_err"] for c in step_cases), "ms": total("ms"),
+                "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"), "bound_by": "bytes",
+                "library_ms": total("library_ms"), "kernel_ms": total("kernel_ms"),
+                "library_kernel_ms": total("library_kernel_ms"), "shapes": [c["shape"] for c in step_cases],
+                **({"eval_launches": det["k3_eval_launches"]["deterministic"]} if kernel.endswith("forward") else {}),
+            })
+        big = cases[f"{2 * B}x32x{S // 2}x{S // 2}:float32"]
         line["kernels"].append({
-            "name": f"upsample2x_backward[{run} step: 8 shapes]", "route": "cuda", "source": SOURCE_K2,
-            "replaces": REPLACES_K2, "launches": det["k2_launches"]["deterministic"],
-            "max_abs_err": max(c["max_abs_err"] for c in step_cases), "ms": total("ms"), "plain_ms": total("plain_ms"),
-            "bound_ms": total("bound_ms"), "bound_by": "bytes", "library_ms": total("library_ms"),
-            "kernel_ms": total("kernel_ms"), "shapes": [c["shape"] for c in step_cases],
+            "name": f"{kernel}[{2 * B}x32x{S // 2}x{S // 2} float32]", "route": "cuda", "source": SOURCE_K2,
+            "replaces": REPLACES_K2, "launches": det_runs["fundus"][launches]["deterministic"] // 8,
+            **{k: big[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms",
+                                   "library_kernel_ms")},
         })
-    big = k2[f"{2 * B}x32x{S // 2}x{S // 2}:float32"]
-    line["kernels"].append({
-        "name": f"upsample2x_backward[{2 * B}x32x{S // 2}x{S // 2} float32]", "route": "cuda", "source": SOURCE_K2,
-        "replaces": REPLACES_K2, "launches": det_runs["fundus"]["k2_launches"]["deterministic"] // 8,
-        **{k: big[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms")},
-    })
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

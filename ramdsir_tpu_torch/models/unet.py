@@ -77,8 +77,9 @@ def init_weights(module: nn.Module, generator: Optional[torch.Generator]) -> Non
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """Bilinear x2, align_corners=False.  While torch's deterministic mode
-    is on (`fit` under cfg.deterministic), its backward is kernel K2
-    (`ops/upsample.py`); otherwise it is torch's own."""
+    is on (`fit` under cfg.deterministic), it is `ops/upsample.Upsample2x`:
+    on the card kernel K3 forward and kernel K2 backward; otherwise it is
+    torch's own."""
     if torch.are_deterministic_algorithms_enabled():
         return Upsample2x.apply(x)
     return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)

@@ -1,35 +1,41 @@
-"""K2: the deterministic backward of the bilinear x2 upsample, a hand-written
-CUDA kernel and its plain PyTorch version, and the autograd Function that
-uses it.
+"""K2 and K3: the bilinear x2 upsample (align_corners=False) both ways,
+hand-written CUDA kernels and their plain PyTorch versions, and the autograd
+Function that uses them.
 
 torch's CUDA backward of `F.interpolate(..., mode="bilinear")` adds with
 atomics, so it is not repeatable, and under
 `torch.use_deterministic_algorithms(True)` torch refuses it.  K2
 (`csrc/upsample2x.cu`) computes the same gradient as a gather with fixed
-weights and a fixed summation order.  It has no TPU counterpart: the JAX
-package's upsample (`jax.image.resize`) is differentiated by XLA.  It is
-built with nvcc at first use on the card into `ramdsir_tpu_torch/_build/`
-(`ops/cuda_build.py`) and bound with ctypes.
+weights and a fixed summation order.  K3, in the same source, is the
+forward: aten's nested bilinear form computed exactly, in place of aten's
+NCHW forward kernel, which spreads the planes over too few threads.
+Neither has a TPU counterpart: the JAX package's upsample
+(`jax.image.resize`) is differentiated by XLA.  They are built with nvcc at
+first use on the card into `ramdsir_tpu_torch/_build/` (`ops/cuda_build.py`)
+and bound with ctypes.
 
-`upsample2x_backward` takes the plain version for tensors on the CPU (the
-tests) and launches the kernel for CUDA tensors; a CUDA tensor it cannot
-take raises, it never falls back.  `launches` counts kernel launches.
-`Upsample2x` is the upsample with this backward; `models/unet.upsample2x`
-takes it while torch's deterministic mode is on.
+`upsample2x_forward` and `upsample2x_backward` take the plain versions for
+tensors on the CPU (the tests) and launch the kernels for CUDA tensors; a
+CUDA tensor they cannot take raises, they never fall back.  `launches`
+counts K2's launches, `forward_launches` K3's.  `Upsample2x` is the upsample
+with both kernels on the card; `models/unet.upsample2x` takes it while
+torch's deterministic mode is on.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ramdsir_tpu_torch.ops import cuda_build
 
 SOURCE = cuda_build.source_path("upsample2x.cu")
-DTYPES = (torch.float32, torch.bfloat16)  # the codes of upsample2x_backward_launch
+DTYPES = (torch.float32, torch.bfloat16)  # the codes of the launch functions
+VEC_COLUMNS = {torch.float32: 4, torch.bfloat16: 8}  # input columns a thread takes on the 16-byte path
 
-launches = 0  # kernel launches; upsample2x_backward adds one per launch
+launches = 0  # K2 launches; upsample2x_backward adds one per launch
+forward_launches = 0  # K3 launches; upsample2x_forward adds one per launch
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -43,12 +49,15 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build_library())
-        fn = lib.upsample2x_backward_launch
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        for fn in (lib.upsample2x_backward_launch, lib.upsample2x_forward_launch):
+            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+# --- plain versions ----------------------------------------------------------------
 
 
 def _axis_backward(g: torch.Tensor, dim: int) -> torch.Tensor:
@@ -79,60 +88,138 @@ def upsample2x_backward_plain(grad: torch.Tensor) -> torch.Tensor:
     return _axis_backward(_axis_backward(g, -1), -2).to(grad.dtype)
 
 
-def _check(grad: torch.Tensor) -> None:
-    if grad.dim() != 4 or grad.shape[2] % 2 or grad.shape[3] % 2 or 0 in grad.shape[2:]:
-        raise ValueError(f"upsample2x_backward: expected (N, C, 2H, 2W), got {tuple(grad.shape)}")
+def _axis_taps(n: int, dtype: torch.dtype, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """aten's source indices and weights for the 2n outputs of an axis of
+    n inputs: s = max(0, (o + 0.5)/2 - 0.5), i0 = floor(s), i1 = min(i0 + 1,
+    n - 1), l1 = s - i0, l0 = 1 - l1 (all exact: l1 is 0, 0.25 or 0.75)."""
+    o = torch.arange(2 * n, dtype=torch.float64, device=device)
+    s = ((o + 0.5) / 2 - 0.5).clamp(min=0)
+    i0 = s.floor()
+    l1 = s - i0
+    i0 = i0.long()
+    return i0, (i0 + 1).clamp(max=n - 1), (1 - l1).to(dtype), l1.to(dtype)
+
+
+def upsample2x_forward_plain(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: (N, C, H, W) -> (N, C, 2H,
+    2W), y = lh0*(lw0*x[i0,j0] + lw1*x[i0,j1]) + lh1*(lw0*x[i1,j0] +
+    lw1*x[i1,j1]) with aten's indices and weights, each product and sum
+    rounded on its own, zero-weight terms kept, accumulated in float32
+    (float64 for a float64 input) and rounded once to the input's dtype."""
+    acc_dtype = torch.promote_types(x.dtype, torch.float32)
+    xa = x.to(acc_dtype)
+    h0, h1, lh0, lh1 = _axis_taps(x.shape[-2], acc_dtype, x.device)
+    w0, w1, lw0, lw1 = _axis_taps(x.shape[-1], acc_dtype, x.device)
+
+    def columns(rows: torch.Tensor) -> torch.Tensor:
+        return lw0 * rows[..., w0] + lw1 * rows[..., w1]
+
+    top, bottom = columns(xa[..., h0, :]), columns(xa[..., h1, :])
+    return (lh0[:, None] * top + lh1[:, None] * bottom).to(x.dtype)
+
+
+# --- the wrappers --------------------------------------------------------------------
+
+
+def _check(t: torch.Tensor, name: str, elements: int) -> None:
+    """What both wrappers refuse wherever the tensor lies: `elements` is the
+    input-side count (N*C*H*W), which the kernels index in 32 bits."""
+    if t.dtype not in DTYPES + (torch.float64,):
+        raise TypeError(f"{name}: float32 or bfloat16 tensors only (float64 on the CPU), got {t.dtype}")
+    if elements >= 2**31:
+        raise ValueError(f"{name}: {elements} elements exceed the kernel's 32-bit indices")
+
+
+def _check_cuda(t: torch.Tensor, name: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    if t.dtype not in DTYPES:
+        raise TypeError(f"{name}: float32 or bfloat16 tensors only (float64 on the CPU), got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: the tensor must be NCHW contiguous")
+
+
+def vector_path(t: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether a launch on input `t` and output `out` takes the 16-byte
+    path: the input's width a multiple of the columns a thread takes and
+    both pointers on 16 bytes.  Otherwise it takes the scalar edge path of
+    the same kernel."""
+    w = min(t.shape[-1], out.shape[-1])  # the input side's width
+    return w % VEC_COLUMNS[t.dtype] == 0 and t.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
 
 
 def upsample2x_backward(grad: torch.Tensor) -> torch.Tensor:
     """The input gradient (N, C, H, W) of the bilinear x2 upsample
     (align_corners=False) from its output gradient (N, C, 2H, 2W)."""
-    _check(grad)
+    if grad.dim() != 4 or grad.shape[2] % 2 or grad.shape[3] % 2 or 0 in grad.shape[2:]:
+        raise ValueError(f"upsample2x_backward: expected (N, C, 2H, 2W), got {tuple(grad.shape)}")
+    n, c, h2, w2 = grad.shape
+    _check(grad, "upsample2x_backward", n * c * (h2 // 2) * (w2 // 2))
     if grad.device.type == "cpu":
         return upsample2x_backward_plain(grad)
-    if grad.device.type != "cuda":
-        raise ValueError(f"upsample2x_backward: no kernel for device {grad.device}")
-    if grad.dtype not in DTYPES:
-        raise TypeError(f"upsample2x_backward: float32 or bfloat16 gradients only, got {grad.dtype}")
-    if not grad.is_contiguous():
-        raise ValueError("upsample2x_backward: the gradient must be NCHW contiguous")
-    n, c, h2, w2 = grad.shape
-    if n * c * (h2 // 2) * (w2 // 2) >= 2**31:
-        raise ValueError(f"upsample2x_backward: {n * c * h2 * w2 // 4} elements exceed the kernel's 32-bit indices")
+    _check_cuda(grad, "upsample2x_backward")
     out = torch.empty((n, c, h2 // 2, w2 // 2), dtype=grad.dtype, device=grad.device)
-    _launch(grad, out)
+    _launch("upsample2x_backward_launch", grad, out)
+    global launches
+    launches += 1
     return out
 
 
-def _launch(grad: torch.Tensor, out: torch.Tensor) -> None:
-    """Launch K2 on tensors `upsample2x_backward` has checked."""
-    global launches
-    n, c, h, w = out.shape
-    dev = grad.device
+def upsample2x_forward(x: torch.Tensor) -> torch.Tensor:
+    """The bilinear x2 upsample (align_corners=False) of (N, C, H, W) to
+    (N, C, 2H, 2W), as `F.interpolate(x, scale_factor=2, mode="bilinear")`
+    computes it."""
+    if x.dim() != 4 or 0 in x.shape[2:]:
+        raise ValueError(f"upsample2x_forward: expected (N, C, H, W) with H, W >= 1, got {tuple(x.shape)}")
+    n, c, h, w = x.shape
+    _check(x, "upsample2x_forward", n * c * h * w)
+    if x.device.type == "cpu":
+        return upsample2x_forward_plain(x)
+    _check_cuda(x, "upsample2x_forward")
+    out = torch.empty((n, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
+    _launch("upsample2x_forward_launch", x, out)
+    global forward_launches
+    forward_launches += 1
+    return out
+
+
+def _launch(entry: str, src: torch.Tensor, dst: torch.Tensor) -> None:
+    """Launch K2 or K3 (`entry`) on tensors its wrapper has checked; the
+    input side (N, C, H, W) is the smaller of the two."""
+    small = src if src.numel() <= dst.numel() else dst
+    n, c, h, w = small.shape
+    dev = src.device
     with torch.cuda.device(dev):
-        err = _library().upsample2x_backward_launch(
-            DTYPES.index(grad.dtype), grad.data_ptr(), out.data_ptr(), n * c, h, w,
+        err = getattr(_library(), entry)(
+            DTYPES.index(src.dtype), int(vector_path(src, dst)), src.data_ptr(), dst.data_ptr(), n * c, h, w,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"upsample2x_backward kernel launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"{entry.replace('_launch', '')} kernel launch failed: CUDA error {err}")
 
 
 class Upsample2x(torch.autograd.Function):
-    """Bilinear x2 (align_corners=False): the forward is aten's
-    `upsample_bilinear2d` with the arguments `F.interpolate(x,
-    scale_factor=2, mode="bilinear")` passes it (a gather, deterministic),
-    the backward `upsample2x_backward` on the gradient made NCHW contiguous.
-    The forward calls aten itself because under deterministic mode
-    `F.interpolate` swaps in a decomposition of index and add kernels for a
-    CUDA input: 8.0 ms of a fundus step's device time against the aten
-    kernel's 5.5 ms (chip_smoke.py's profile, NVIDIA H100 80GB HBM3,
-    700.00 W)."""
+    """Bilinear x2 (align_corners=False): on CUDA tensors K3 forward and K2
+    backward, the input and the gradient made NCHW contiguous (eval's
+    activations are channels-last: the predict path permutes NHWC images).  On CPU tensors the
+    forward stays aten's, the one `F.interpolate` runs on the default path,
+    and the backward is K2's plain version: on the CPU the mode then changes
+    only the backward's summation order, as before K3 existed (a training
+    step's gradients move far more under ulp-level changes of its forward
+    than under that order, tests/test_torch_port_upsample.py).  On the card
+    it does not call `F.interpolate`, because under deterministic mode that
+    swaps in a decomposition of index and add kernels (8.0 ms of a fundus
+    step's device time against aten's kernel's 5.5 ms, chip_smoke.py's
+    profile), and aten's NCHW forward kernel itself runs at ~4% of its
+    bytes bound: a fundus float32 step's 8 forwards take 6.26 ms there
+    against K3's 0.34 ms and a bound of 0.23 ms (tools/upsample_study.py,
+    kernels back to back; NVIDIA H100 80GB HBM3, 700.00 W)."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor) -> torch.Tensor:
-        return torch.ops.aten.upsample_bilinear2d.vec(x, None, False, [2.0, 2.0])
+        if x.device.type == "cpu":
+            return torch.ops.aten.upsample_bilinear2d.vec(x, None, False, [2.0, 2.0])
+        return upsample2x_forward(x.contiguous())
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor) -> torch.Tensor:

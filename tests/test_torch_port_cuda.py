@@ -1,4 +1,4 @@
-"""K1 and K2 on the card against their plain versions, the eval path on
+"""K1, K2 and K3 on the card against their plain versions, the eval path on
 the card against the CPU, a bfloat16 step through K1, a `.ckpt` round trip
 of a card state, deterministic steps that repeat bit for bit, the GN / IN
 forwards against the CPU, --remat bit-equal to no remat, the host input
@@ -25,7 +25,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def gen():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 and K2 are CUDA kernels with no CPU build")
+        pytest.skip("needs a CUDA card: K1, K2 and K3 are CUDA kernels with no CPU build")
     return torch.Generator(device="cuda").manual_seed(0)
 
 
@@ -281,16 +281,25 @@ def test_ckpt_round_trip_of_card_state_is_bit_equal(gen, tmp_path):
         assert sa.keys() == sb.keys() and all(torch.equal(sa[k].cpu(), sb[k].cpu()) for k in sa)
 
 
-# --- K2, the deterministic upsample backward, and a deterministic step --------------
+# --- K2 and K3, the deterministic upsample, and a deterministic step ---------------
 
 # (N, C, H, W) of the input: edges, odd sizes, and two U-Net stages of the
 # fundus main path (seg decoder over the dual batch of 32: 256 ch at 16^2,
-# 32 ch at 128^2)
-K2_SHAPES = [(2, 3, 1, 1), (2, 3, 2, 1), (1, 4, 5, 7), (3, 5, 33, 17), (32, 256, 16, 16), (32, 32, 128, 128)]
+# 32 ch at 128^2); then the edges of the kernels' tiling (a thread owns 4
+# float32 or 8 bfloat16 columns): W = 2, 3, 9 and 12 (not a multiple of 4 or
+# 8: the scalar path), odd H, 4 planes of 4 x 8 (fewer threads than a
+# block), W = 24 (3 bfloat16 column groups a row, rows across warp edges),
+# and the prostate path's largest stages (seg decoder over 20 rows, rec
+# decoder over 10, at 192^2)
+K2_SHAPES = [(2, 3, 1, 1), (2, 3, 2, 1), (1, 4, 5, 7), (3, 5, 33, 17), (32, 256, 16, 16), (32, 32, 128, 128),
+             (1, 2, 7, 2), (1, 3, 5, 3), (2, 2, 9, 9), (2, 3, 11, 12), (1, 4, 4, 8), (3, 5, 24, 24),
+             (20, 32, 192, 192), (10, 16, 192, 192)]
+SHAPE_IDS = [f"{s[0]}x{s[1]}x{s[2]}x{s[3]}" for s in K2_SHAPES]
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", K2_SHAPES, ids=[f"{s[0]}x{s[1]}x{s[2]}x{s[3]}" for s in K2_SHAPES])
+@DTYPES
+@pytest.mark.parametrize("shape", K2_SHAPES, ids=SHAPE_IDS)
 def test_k2_matches_plain(gen, shape, dtype):
     """K2 against its plain version on the card, bit for bit; one launch."""
     from ramdsir_tpu_torch.ops import upsample
@@ -318,9 +327,77 @@ def test_k2_refuses_what_it_cannot_take(gen):
         upsample.upsample2x_backward(g.double())
 
 
+@DTYPES
+@pytest.mark.parametrize("shape", K2_SHAPES, ids=SHAPE_IDS)
+def test_k3_matches_plain(gen, shape, dtype):
+    """K3 against its plain version on the card, bit for bit; one launch,
+    counted apart from K2's."""
+    from ramdsir_tpu_torch.ops import upsample
+
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    before = (upsample.launches, upsample.forward_launches)
+    got = upsample.upsample2x_forward(x)
+    want = upsample.upsample2x_forward_plain(x)
+    torch.cuda.synchronize()
+    assert (upsample.launches, upsample.forward_launches) == (before[0], before[1] + 1)
+    n, c, h, w = shape
+    assert got.dtype == dtype and got.shape == (n, c, 2 * h, 2 * w)
+    assert torch.equal(got, want)
+
+
+@DTYPES
+@pytest.mark.parametrize("offset", [1, 3])
+def test_k2_and_k3_take_a_view_off_16_bytes(gen, dtype, offset):
+    """An input `offset` elements into its storage (so not on 16 bytes)
+    takes the scalar edge path of each kernel, bit-equal to the plain
+    version; the same values on 16 bytes take the vector path, equal too."""
+    from ramdsir_tpu_torch.ops import upsample
+
+    x = torch.randn((4, 8, 16, 32), generator=gen, device="cuda").to(dtype)
+    g = torch.randn((4, 8, 32, 64), generator=gen, device="cuda").to(dtype)
+    xo, go = _at_offset(x, offset), _at_offset(g, offset)
+    assert not upsample.vector_path(xo, torch.empty_like(g)) and upsample.vector_path(x, torch.empty_like(g))
+    assert not upsample.vector_path(go, torch.empty_like(x)) and upsample.vector_path(g, torch.empty_like(x))
+    want_y, want_g = upsample.upsample2x_forward_plain(x), upsample.upsample2x_backward_plain(g)
+    for fwd, bwd in ((xo, go), (x, g)):
+        y, dx = upsample.upsample2x_forward(fwd), upsample.upsample2x_backward(bwd)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want_y) and torch.equal(dx, want_g)
+
+
+def test_upsample_function_takes_channels_last_through_k3(gen):
+    """`Upsample2x.apply` on a channels-last input (eval's activations: the
+    predict path permutes NHWC images) makes it contiguous and launches K3
+    once, bit-equal to the plain forward; its backward launches K2 once."""
+    from ramdsir_tpu_torch.ops import upsample
+
+    x = torch.randn((2, 16, 12, 16), generator=gen, device="cuda").contiguous(memory_format=torch.channels_last)
+    x.requires_grad_(True)
+    before = (upsample.launches, upsample.forward_launches)
+    y = upsample.Upsample2x.apply(x)
+    (dx,) = torch.autograd.grad(y, x, torch.ones_like(y))
+    torch.cuda.synchronize()
+    assert (upsample.launches, upsample.forward_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(y, upsample.upsample2x_forward_plain(x.detach()))
+    assert torch.equal(dx, upsample.upsample2x_backward_plain(torch.ones_like(y)))
+
+
+def test_k3_refuses_what_it_cannot_take(gen):
+    from ramdsir_tpu_torch.ops import upsample
+
+    x = torch.randn((2, 4, 8, 6), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="NCHW contiguous"):
+        upsample.upsample2x_forward(x.transpose(2, 3))
+    with pytest.raises(ValueError, match="NCHW contiguous"):
+        upsample.upsample2x_forward(x.contiguous(memory_format=torch.channels_last))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        upsample.upsample2x_forward(x.double())
+
+
 def _deterministic_steps(cfg, steps=2):
     """`steps` steps of a fresh state and a fresh pipeline from one seed
-    under deterministic_mode; the state, the metrics and K2's launches."""
+    under deterministic_mode; the state, the metrics and K2's and K3's
+    launches."""
     from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
     from ramdsir_tpu_torch.data.synthetic import fundus_arrays
     from ramdsir_tpu_torch.ops import upsample
@@ -335,19 +412,19 @@ def _deterministic_steps(cfg, steps=2):
     state = init_state(cfg, torch.Generator().manual_seed(0), "cuda")
     step = make_train_step(cfg, total_iters=10, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data)
     gen, rows, metrics = torch.Generator().manual_seed(1), iter(pipe), []
-    before = upsample.launches
+    before = (upsample.launches, upsample.forward_launches)
     with deterministic_mode(True):
         for _ in range(steps):
             metrics.append({k: v.clone() for k, v in step(state, next(rows), gen).items()})
     torch.cuda.synchronize()
-    return state, metrics, upsample.launches - before
+    return state, metrics, (upsample.launches - before[0], upsample.forward_launches - before[1])
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_deterministic_steps_repeat_bit_for_bit(gen, compute_dtype):
     """Two runs of two fundus steps from one seed under deterministic_mode:
-    parameters, BN statistics, Adam moments and losses bit-equal; K2
-    launched 8 times a step; the mode is off afterwards."""
+    parameters, BN statistics, Adam moments and losses bit-equal; K2 and K3
+    launched 8 times a step each; the mode is off afterwards."""
     from ramdsir_tpu_torch.config import TrainConfig
 
     cfg = TrainConfig(dataset="fundus", domain_idxs=(1, 2, 3), test_domain_idx=0, ram=True, rec=True,
@@ -355,7 +432,7 @@ def test_deterministic_steps_repeat_bit_for_bit(gen, compute_dtype):
                       compute_dtype=compute_dtype, device="cuda").resolve()
     (a, ma, ka), (b, mb, kb) = _deterministic_steps(cfg), _deterministic_steps(cfg)
     assert not torch.are_deterministic_algorithms_enabled()
-    assert ka == kb == 2 * 8
+    assert ka == kb == (2 * 8, 2 * 8)
     for x, y in zip(ma, mb):
         assert x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
     for name, m in a.models.items():
