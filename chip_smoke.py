@@ -27,12 +27,15 @@ result line):
               of zero_); the bound from `k1_min_bytes`.  delta@384x384
               is timed the same way
   ram_oracle  the RAM functions on the card against a float64 numpy oracle
-  main_path   the fundus trainer (`train.loop.fit`) at 256^2, U-Net n=16,
+  main_path   the fundus trainer (`train.loop.fit`, its default scan windows:
+              CUDA-graph replays; the window, replays, capture seconds and
+              graph pool reported) at 256^2, U-Net n=16,
               batch 16 = 3+6+7 over domains 1,2,3, on an in-memory synthetic
               set: the defaults (banded-DFT RAM, K1 band-delta mode),
               ram_use_pallas (K1 full mode) and no_ram_banded_dft (K1 band
-              mode); K1's launch count is read around each run and must equal
-              its step count, all through the mode's own code path.  Each
+              mode); K1's launches are counted by the kernel itself on the
+              card (graph replays included), read around each run, and must
+              equal its step count, all through the mode's own code path.  Each
               run evaluates at each epoch's end and at its last step, on an
               in-memory test split of target domain 0 (50 images at 512^2,
               test batch 8: six batches and a tail of 2); the last eval's
@@ -51,7 +54,19 @@ result line):
               from final_model.ckpt must give the same six metrics
   profile     where a fundus step's and a prostate step's device time goes,
               float32 and bfloat16, and a fundus step under --deterministic
-              (torch.profiler over 5 steps each)
+              (torch.profiler over 5 single steps each, a synchronise a step)
+  scan        scan windows (--scan_window): `fit` with the default window, a
+              CUDA graph of one step replayed after two eager steps, against
+              --scan_window 1, fundus and prostate under --deterministic over
+              two segments with an eval between: state and logged rows
+              bit-equal, K1 once a step and K2 / K3 8 a step both ways
+              (counted through the replays); then fundus and prostate,
+              float32 and bfloat16, in turns a step a launch and graphs:
+              median step, img/s, device busy and idle share, host launch
+              calls a step, peak memory, capture seconds and graph pool
+              bytes; a graph window and its ring append under the sync debug
+              mode "error"; graph-vs-eager and eager-vs-eager loss distances
+              without --deterministic
   step_parity one step with K1 and the same step with the plain mix, from
               the same state and draws (TF32 off, deterministic cuDNN)
   bf16_step_parity
@@ -183,7 +198,13 @@ Then the card line from nvidia-smi, the kernels line (K1 per mode and at
 the prostate shape, the variant and ddp runs' launches (per rank) added to
 the band-delta entries by run and the host-loader runs' to the full entry;
 K2 and K3 each summed over a deterministic step's 8 launches for
-each run, and at the largest shape), and the result line.
+each run, and at the largest shape), and the result line.  Every run's
+launches are the kernels' own counts on the card (`read_launches`): each
+kernel adds one to a device counter as it runs, so a graph replay counts
+and a launch recorded into a graph that never runs does not;
+`host_launches` are the wrappers' counts on the host over the same run
+(eager launches and each launch recorded into a graph, once; K3's with
+eval's).
 Run artefacts go to chiprun_out/chip_smoke/ (prostate: chip_smoke/prostate/);
 the .pth and .ckpt files, the NIfTI volumes, the PNGs and the .npy slices are
 deleted at exit.
@@ -201,6 +222,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
+T0 = time.perf_counter()  # the script's start: each phase line carries its elapsed seconds
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(REPO, "chiprun_out", "chip_smoke")
 SOURCE_REL = "ramdsir_tpu_torch/csrc/ram_mix.cu"
@@ -242,10 +264,38 @@ def sync(torch):
         torch.cuda.synchronize()
 
 
+def zero_launches(torch):
+    """Every launch count to 0 before a run: the wrappers' counts on the
+    host and the kernels' own counts on the card."""
+    from ramdsir_tpu_torch.ops import ram_mix, upsample
+
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    ram_mix.launches, upsample.launches, upsample.forward_launches = 0, 0, 0
+    ram_mix.launches_by_path.update(dict.fromkeys(ram_mix.launches_by_path, 0))
+    ram_mix.zero_device_launches()
+    upsample.zero_device_launches()
+
+
+def read_launches(torch):
+    """The launches since `zero_launches` as the kernels counted them on the
+    card while they ran, CUDA graph replays included: K1 (`k1`, and
+    `k1_paths`, the paths with any), K2 (`k2`) and K3 (`k3`); and under
+    `host` the wrappers' counts, which see a launch recorded into a graph
+    once and none of its replays."""
+    from ramdsir_tpu_torch.ops import ram_mix, upsample
+
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    paths, up = ram_mix.device_launches(), upsample.device_launches()
+    return dict(k1=sum(paths.values()), k1_paths={p: k for p, k in paths.items() if k}, k2=up["backward"],
+                k3=up["forward"], host=dict(k1=ram_mix.launches, k2=upsample.launches, k3=upsample.forward_launches))
+
+
 def emit(phase, **kw):
     """A phase's JSON line, on stdout and appended to OUT/phases.jsonl (the
     end of stdout is all that may come back from a long run)."""
-    line = json.dumps({"phase": phase, **kw})
+    line = json.dumps({"phase": phase, **kw, "elapsed_s": time.perf_counter() - T0})
     print(line, flush=True)
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, "phases.jsonl"), "a") as f:
@@ -628,14 +678,13 @@ def phase_main_path(torch, np, ram_mix, arrays, testset):
         )
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ram_mix.launches = 0
-        ram_mix.launches_by_path.update(dict.fromkeys(ram_mix.launches_by_path, 0))
+        zero_launches(torch)
         t0 = time.perf_counter()
         summary = fit(cfg, max_steps=steps, pipeline=pipe, testset=testset)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = ram_mix.launches
-        paths = {p: k for p, k in ram_mix.launches_by_path.items() if k}
+        counts = read_launches(torch)
+        launches, paths = counts["k1"], counts["k1_paths"]
         peak = torch.cuda.max_memory_allocated()
         rows = [json.loads(line) for line in open(os.path.join(run_dir, "log", "metrics.jsonl"))]
         losses = [v for r in rows for k, v in r.items() if k.startswith("loss/")]
@@ -649,7 +698,8 @@ def phase_main_path(torch, np, ram_mix, arrays, testset):
         csv_rows = open(os.path.join(run_dir, f"{cfg.test_domain_idx}_val_log.csv")).read().splitlines()
         evals = [r["eval/avg_dice"] for r in rows if "eval/avg_dice" in r]
         entry = dict(
-            run=name, steps=summary["steps"], k1_launches=launches, k1_paths=paths, losses_finite=finite,
+            run=name, steps=summary["steps"], k1_launches=launches, k1_paths=paths,
+            k1_host_launches=counts["host"]["k1"], losses_finite=finite,
             first_loss=rows[0]["loss/loss"], last_loss=[r for r in rows if "loss/loss" in r][-1]["loss/loss"],
             median_step_ms=summary["median_step_ms"], images_per_sec=summary["images_per_sec"],
             peak_memory_bytes=peak, wall_s=wall, batch=sum(cfg.batch_size_list), image_size=S,
@@ -658,6 +708,7 @@ def phase_main_path(torch, np, ram_mix, arrays, testset):
             csv_rows=len(csv_rows), evals=len(evals), eval_images=len(testset), eval_original_size=EVAL_SIZE,
             test_batch=cfg.test_batch_size, **eval_fields(summary["eval_timing"], len(testset)),
             compute_dtype=cfg.compute_dtype, predict_dtype=cfg.predict_dtype,
+            **{k: summary[k] for k in ("scan_window", "graph_replays", "capture_s", "graph_pool_bytes")},
         )
         if name == "bf16":
             entry["float32"] = {k: runs["default"][k] for k in ("median_step_ms", "images_per_sec", "peak_memory_bytes")}
@@ -848,12 +899,11 @@ def phase_resume(torch, np, ram_mix, arrays, testset, steps_done):
     floor = step_distance(torch, one["again"], one["original"])[1]
     forward_equal = loss_rel == 0.0 and stat_err == 0.0
 
-    ram_mix.launches = 0
-    ram_mix.launches_by_path.update(dict.fromkeys(ram_mix.launches_by_path, 0))
+    zero_launches(torch)
     summary = fit(dataclasses.replace(cfg, checkpoint_resume=src), max_steps=steps_done + RESUME_STEPS,
                   pipeline=pipe, testset=testset)
-    launches = ram_mix.launches
-    paths = {p: k for p, k in ram_mix.launches_by_path.items() if k}
+    counts = read_launches(torch)
+    launches, paths = counts["k1"], counts["k1_paths"]
     rows = [json.loads(line) for line in open(os.path.join(run_dir, "log", "metrics.jsonl"))]
     lrs = [(r["step"], r["lr"]) for r in rows if "lr" in r]
     want_lr = poly_lr(cfg.lr, steps_done, len(pipe) * cfg.epochs)
@@ -862,6 +912,7 @@ def phase_resume(torch, np, ram_mix, arrays, testset, steps_done):
                  step_running_stats_bit_equal=stat_err == 0.0, step_params_max_abs=param_err,
                  step_params_bit_equal=param_err == 0.0, same_state_params_max_abs=floor, params_tol=2.5 * cfg.lr,
                  resumed_steps=summary["steps"] - steps_done, k1_launches=launches, k1_paths=paths,
+                 k1_host_launches=counts["host"]["k1"],
                  first_lr=lrs[0] if lrs else None, expected_lr=[steps_done, want_lr])
     emit("resume", **entry)
     if not file_equal or differing:
@@ -1021,14 +1072,13 @@ def phase_prostate_path(torch, np, ram_mix, prostate, data_root, bf16_beside=Non
     )
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ram_mix.launches = 0
-    ram_mix.launches_by_path.update(dict.fromkeys(ram_mix.launches_by_path, 0))
+    zero_launches(torch)
     t0 = time.perf_counter()
     summary = fit(cfg, max_steps=steps, pipeline=pipe)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ram_mix.launches
-    paths = {p: k for p, k in ram_mix.launches_by_path.items() if k}
+    counts = read_launches(torch)
+    launches, paths = counts["k1"], counts["k1_paths"]
     peak = torch.cuda.max_memory_allocated()
     rows = [json.loads(line) for line in open(os.path.join(run_dir, "log", "metrics.jsonl"))]
     keys = ("loss_ce_1", "loss_dice_1", "loss_ce_2", "loss_dice_2", "loss_consistency", "loss_rec", "loss")
@@ -1045,6 +1095,7 @@ def phase_prostate_path(torch, np, ram_mix, prostate, data_root, bf16_beside=Non
     timing = summary["eval_timing"]
     entry = dict(
         run="prostate_bf16" if bf16 else "prostate", steps=summary["steps"], k1_launches=launches, k1_paths=paths,
+        k1_host_launches=counts["host"]["k1"],
         losses_finite=finite, compute_dtype=cfg.compute_dtype, predict_dtype=cfg.predict_dtype,
         first_loss=steps_logged[0]["loss/loss"], last_loss=steps_logged[-1]["loss/loss"],
         median_step_ms=summary["median_step_ms"], images_per_sec=summary["images_per_sec"],
@@ -1231,7 +1282,9 @@ def phase_profile(torch, ram_mix, arrays, prostate, steps=5, warmup=3):
     """Where a default fundus step's and a prostate step's device time goes,
     in float32 and in bfloat16, and a fundus float32 step under
     deterministic_mode (K3 and K2 for the upsample): torch.profiler over
-    `steps` steps after `warmup`, each step synchronised as `fit` does."""
+    `steps` single steps after `warmup`, each step's losses read back (a
+    synchronise a step, as `fit` did before its scan windows; phase scan
+    times the windows)."""
     from ramdsir_tpu_torch.config import TrainConfig
     from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline, DeviceProstatePipeline
 
@@ -1286,7 +1339,11 @@ def device_breakdown(prof, wall_us, count, unit):
     `unit` from a torch.profiler run over `count` units in `wall_us`."""
     from torch.autograd import DeviceType
 
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the device's kernels and copies; a record_function range (such as
+    # "Optimizer.step#Adam.step") is also a CUDA event, spanning its kernels
+    # and the gaps between them, so it is not busy time
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     per_name, per_group = {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
@@ -1402,8 +1459,7 @@ def phase_png_tree(torch, np, ram_mix):
 
     # the train CLI: one epoch of the reference configuration, its eval
     run_dir = os.path.join(PNG_OUT, "run")
-    ram_mix.launches = 0
-    ram_mix.launches_by_path.update(dict.fromkeys(ram_mix.launches_by_path, 0))
+    zero_launches(torch)
     t0 = time.perf_counter()
     summary = train_main(["--data_root", data_root, "--dataset", "fundus", "--domain_idxs", "1,2,3",
                           "--test_domain_idx", "0", "--ram", "--rec", "--consistency", "--consistency_type", "kd",
@@ -1411,7 +1467,7 @@ def phase_png_tree(torch, np, ram_mix):
                           "--device", DEVICE])
     sync(torch)
     train_s = time.perf_counter() - t0
-    k1 = ram_mix.launches
+    k1 = read_launches(torch)["k1"]
     timing = summary["eval_timing"]
 
     # the eval CLI with --save_result: every overlay decodes to what was written
@@ -1481,8 +1537,7 @@ def host_fit(torch, np, ram_mix, name, cfg, steps=None):
     sync(torch)
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    ram_mix.launches = 0
-    ram_mix.launches_by_path.update(dict.fromkeys(ram_mix.launches_by_path, 0))
+    zero_launches(torch)
     errs, written, write = [], {}, png.write
 
     def recording_write(path, array, **kw):
@@ -1491,7 +1546,7 @@ def host_fit(torch, np, ram_mix, name, cfg, steps=None):
 
     checked = StepTimer().warmup
     t0 = time.perf_counter()
-    with k1_held_to_plain(ram_mix, errs, checked), mock.patch.object(png, "write", recording_write):
+    with k1_held_to_plain(torch, ram_mix, errs, checked), mock.patch.object(png, "write", recording_write):
         summary = fit(cfg, max_steps=steps)
     sync(torch)
     wall = time.perf_counter() - t0
@@ -1504,10 +1559,11 @@ def host_fit(torch, np, ram_mix, name, cfg, steps=None):
     grid_paths = [p for p in written if os.sep + "images" + os.sep in p]
     round_trip = sum(np.array_equal(png.decode(p).array, written[p]) for p in grid_paths)
     evals = [r["eval/avg_dice"] for r in rows if "eval/avg_dice" in r]
-    paths = {p: k for p, k in ram_mix.launches_by_path.items() if k}
+    counts = read_launches(torch)
+    paths = counts["k1_paths"]
     entry = dict(
         run=name, loader=cfg.loader, dataset=cfg.dataset, steps=summary["steps"], epochs_run=len(epochs),
-        batch=sum(cfg.batch_size_list), image_size=cfg.image_size, k1_launches=ram_mix.launches, k1_paths=paths,
+        batch=sum(cfg.batch_size_list), image_size=cfg.image_size, k1_launches=counts["k1"], k1_paths=paths,
         k1_max_abs_err=max(float(e) for e in errs) if errs else None, k1_checked_steps=checked,
         losses_finite=finite, first_loss=losses[0]["loss/loss"], last_loss=losses[-1]["loss/loss"],
         median_step_ms=summary["median_step_ms"], images_per_sec=summary["images_per_sec"],
@@ -1737,7 +1793,12 @@ def phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, prostate_
     K1 launches == steps in every run.  Two steps from one re-loaded state
     under the mode are bit-equal (without it they part by ~9e-6: the
     atomics of torch's upsample backward).
-    Every (shape, dtype) K2 and K3 met then goes through phase_k2."""
+    Every (shape, dtype) K2 and K3 met then goes through phase_k2.  The runs
+    take the default scan windows, so the recording hooks on K2's and K3's
+    wrappers see the two eager warm-up steps and the capture only, never a
+    replay: the shapes are those of every step all the same.  The K1, K2
+    and K3 counts are the kernels' own on the card, replays included, and
+    K3's in eval are read on the card around each eval."""
     import dataclasses
 
     from ramdsir_tpu_torch.config import TrainConfig
@@ -1763,11 +1824,11 @@ def phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, prostate_
         return record_forward(x)
 
     def counting_eval(*args, **kwargs):  # K3's launches in eval, apart from the steps'
-        before, in_eval[0] = upsample.forward_launches, True
+        before, in_eval[0] = upsample.device_launches()["forward"], True
         try:
             return evaluate(*args, **kwargs)
         finally:
-            eval_k3[0] += upsample.forward_launches - before
+            eval_k3[0] += upsample.device_launches()["forward"] - before
             in_eval[0] = False
 
     for dataset, bf16 in (("fundus", False), ("fundus", True), ("prostate", False), ("prostate", True)):
@@ -1788,15 +1849,16 @@ def phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, prostate_
         for rep in DET_RUNS:
             cfg = dataclasses.replace(cfg0, save_path=os.path.join(root, rep), deterministic=rep.startswith("det"))
             shutil.rmtree(cfg.save_path, ignore_errors=True)
-            ram_mix.launches, upsample.launches, upsample.forward_launches, eval_k3[0] = 0, 0, 0, 0
+            zero_launches(torch)
+            eval_k3[0] = 0
             with mock.patch.object(upsample, "upsample2x_backward", recording), \
                     mock.patch.object(upsample, "upsample2x_forward", recording_forward), \
                     mock.patch.object(loop, "evaluate_target", counting_eval):
                 summary = fit(cfg, max_steps=DET_STEPS, pipeline=make_pipe(cfg), testset=data)
-            sync(torch)
+            counts = read_launches(torch)
             rows = [json.loads(line) for line in open(os.path.join(cfg.save_path, "log", "metrics.jsonl"))]
-            out[rep] = dict(summary=summary, k1=ram_mix.launches, k2=upsample.launches,
-                            k3=upsample.forward_launches - eval_k3[0], k3_eval=eval_k3[0],
+            out[rep] = dict(summary=summary, k1=counts["k1"], k2=counts["k2"], k3=counts["k3"] - eval_k3[0],
+                            k3_eval=eval_k3[0], host=counts["host"],
                             losses=[{k: v for k, v in r.items() if k.startswith("loss/")} for r in rows if "loss/loss" in r],
                             state=read_checkpoint(summary["resume_checkpoint"])["state"])
         a, b = out["deterministic"], out["deterministic_again"]
@@ -1820,6 +1882,7 @@ def phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, prostate_
                      k2_launches={rep: out[rep]["k2"] for rep in DET_RUNS},
                      k3_launches={rep: out[rep]["k3"] for rep in DET_RUNS},
                      k3_eval_launches={rep: out[rep]["k3_eval"] for rep in DET_RUNS},
+                     host_launches={rep: out[rep]["host"] for rep in DET_RUNS},
                      median_step_ms=med, mode_cost_ms=on - off, mode_cost_share=(on - off) / off,
                      reloaded_step_params_max_abs=param_err, reloaded_step_losses_max_rel=loss_rel,
                      reloaded_step_running_stats_max_abs=stat_err,
@@ -1843,6 +1906,210 @@ def phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, prostate_
     return runs, shapes, forward_shapes
 
 
+# --- scan windows: CUDA-graph replays of the train step ---------------------------------
+
+
+SCAN_STEPS = {"fundus": 24, "prostate": 22}  # a segment's window (21 / 20 steps), an eval, then 3 / 2 more steps
+SCAN_OUT = os.path.join(OUT, "scan")
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx",
+                     "cudaGraphLaunch", "cuGraphLaunch")
+
+
+def scan_fit(torch, ram_mix, cfg, pipe, steps, testset):
+    """`fit` of `steps` steps with K1, K2 and K3 counted from 0 and K3's eval
+    launches apart: (summary, counts, the loss and lr rows without the
+    clock, the final .ckpt tree)."""
+    from ramdsir_tpu_torch.ops import upsample
+    from ramdsir_tpu_torch.train import loop
+    from ramdsir_tpu_torch.train.checkpoint import read_checkpoint
+
+    evaluate, in_eval = loop.evaluate_target, [0]
+
+    def counting_eval(*args, **kwargs):
+        before = upsample.device_launches()["forward"]
+        try:
+            return evaluate(*args, **kwargs)
+        finally:
+            in_eval[0] += upsample.device_launches()["forward"] - before
+
+    shutil.rmtree(cfg.save_path, ignore_errors=True)
+    zero_launches(torch)
+    with mock.patch.object(loop, "evaluate_target", counting_eval):
+        summary = loop.fit(cfg, max_steps=steps, pipeline=pipe, testset=testset)
+    got = read_launches(torch)
+    counts = dict(k1=got["k1"], k2=got["k2"], k3=got["k3"] - in_eval[0], k3_eval=in_eval[0], host=got["host"])
+    rows = [json.loads(line) for line in open(os.path.join(cfg.save_path, "log", "metrics.jsonl"))]
+    rows = [{k: v for k, v in r.items() if k != "t"} for r in rows if "loss/loss" in r or "lr" in r]
+    return summary, counts, rows, read_checkpoint(summary["resume_checkpoint"])["state"]
+
+
+SCAN_WARM_STEPS, SCAN_PROFILED_STEPS = 3, 5  # the graph's two eager steps, its capture and a replay
+
+
+def scan_timing(torch, np, name, cfg, pipe, graphs, seed=0):
+    """Windows from the seed's state through the window step, as single-step
+    windows (--scan_window 1) or graph windows of up to W = steps an epoch:
+    SCAN_WARM_STEPS steps (the graph's capture, or a warm-up), W steps
+    timed between CUDA events (each step, or the window), and
+    SCAN_PROFILED_STEPS steps under torch.profiler.  With graphs a window of
+    SCAN_WARM_STEPS and its ring append then run under
+    torch.cuda.set_sync_debug_mode("error").  Per-step losses of the timed
+    window come back for the distances between runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ramdsir_tpu_torch.train.state import init_state
+    from ramdsir_tpu_torch.train.steps import make_train_step
+    from ramdsir_tpu_torch.utils.logging import DeviceMetricsRing, MetricsWriter
+
+    w, b = len(pipe), sum(cfg.batch_size_list)
+    state = init_state(cfg, torch.Generator().manual_seed(seed), "cuda")
+    runner = make_train_step(cfg, total_iters=1000, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data,
+                             scan=True, window=w if graphs else 1)
+    gen = torch.Generator().manual_seed(seed)
+    plans = [pipe.epoch_plan() for _ in range(4)]
+    plans = [{k: v[:n] for k, v in p.items()} for p, n in zip(plans, (SCAN_WARM_STEPS, w, SCAN_PROFILED_STEPS,
+                                                                         SCAN_WARM_STEPS))]
+    units = (lambda plan: [plan]) if graphs else (
+        lambda plan: [{k: v[i : i + 1] for k, v in plan.items()} for i in range(len(plan["img_idx"]))])
+
+    def window(plan, events=None):
+        tables = []
+        for unit in units(plan):
+            tables.append(runner(state, unit, gen)[0])
+            if events is not None:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+        return {k: torch.cat([t[k] for t in tables]) for k in tables[0]}
+
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    window(plans[0])
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+    timed = window(plans[1], events)
+    sync(torch)
+    ms = [a.elapsed_time(c) for a, c in zip(events, events[1:])]
+    per_step = [m / (w if graphs else 1) for m in ms for _ in range(w if graphs else 1)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        window(plans[2])
+        sync(torch)
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    host_calls = sum(1 for e in prof.events() if e.name in HOST_LAUNCH_CALLS)
+    n = SCAN_PROFILED_STEPS
+    entry = dict(run=name, mode="graph" if graphs else "scan_window_1", steps_a_window=w, batch=b,
+                 image_size=cfg.image_size, compute_dtype=cfg.compute_dtype,
+                 median_step_ms=statistics.median(per_step), images_per_sec=b * w / (sum(ms) / 1e3),
+                 host_launch_calls_per_step=host_calls / n, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                 capture_s=runner.capture_seconds, graph_pool_bytes=runner.graph_pool_bytes, replays=runner.replays,
+                 graphed=runner.graphed(), profiled_steps=n, **device_breakdown(prof, wall_us, n, "step"))
+    entry.pop("top_kernels_ms_per_step")
+    if graphs:
+        writer = MetricsWriter(os.path.join(SCAN_OUT, "sync_check"))
+        ring = DeviceMetricsRing(writer)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ring.append(state.step, window(plans[3]))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ring.flush()
+        writer.close()
+        entry["window_and_ring_append_without_sync"] = True
+    losses = timed["loss"].cpu().numpy()
+    entry["losses_finite"] = bool(np.all(np.isfinite(losses)))
+    return entry, losses
+
+
+def phase_scan(torch, np, ram_mix, arrays, testset, prostate, prostate_root, card):
+    """Scan windows on the card: `fit` with the default window (W = the
+    steps of the segment up to the next eval: CUDA-graph replays of one
+    step after two eager ones) against --scan_window 1 (a step a launch).
+
+    Under --deterministic, fundus at the reference configuration and
+    prostate, each over two segments with an eval between them: the final
+    parameters, BN statistics, Adam moments and steps and every logged loss
+    and lr row bit-equal, K1 counted once a step and K2 and K3 8 times a
+    step in both runs (K3's eval launches apart), and the graph replayed at
+    every step after the first two.  Then, for fundus and prostate in
+    float32 and bfloat16, in turns a step a launch and graphs (fundus
+    float32: eager, graph, graph, eager), the window step's timing
+    (`scan_timing`): median step, img/s, device busy and idle share
+    (torch.profiler over one window), host launch calls a step, peak
+    memory, capture seconds and the graph's pool; one graph window and its
+    ring append under the sync debug mode "error"; and, without
+    --deterministic, the fundus float32 losses of graph against eager and
+    of eager against eager (the atomics of cuDNN's and torch's backward
+    make two eager runs part), gated on finite losses only."""
+    import dataclasses
+
+    from ramdsir_tpu_torch.config import TrainConfig
+    from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline, DeviceProstatePipeline
+
+    def fundus_pipe(cfg):
+        return DeviceFundusPipeline.from_arrays(
+            arrays, cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx, is_out_domain=True,
+            seed=cfg.seed, precompute_donor_amp=cfg.ram_precompute_donor_amp, device="cuda")
+
+    def prostate_pipe(cfg):
+        return DeviceProstatePipeline.from_arrays(
+            prostate, cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx, seed=cfg.seed, device="cuda")
+
+    def config(dataset, run_dir, bf16=False, **kw):
+        if dataset == "fundus":
+            return main_path_config(TrainConfig, "bf16" if bf16 else "default", run_dir, **kw)
+        return prostate_config(TrainConfig, run_dir, prostate_root, bf16, **kw)
+
+    results = {"bit_equality": {}, "timing": []}
+    for dataset in ("fundus", "prostate"):
+        steps, out = SCAN_STEPS[dataset], {}
+        for mode, sw in (("scan_window_1", 1), ("graph", None)):
+            cfg = config(dataset, os.path.join(SCAN_OUT, dataset, mode), deterministic=True, scan_window=sw)
+            pipe = fundus_pipe(cfg) if dataset == "fundus" else prostate_pipe(cfg)
+            out[mode] = scan_fit(torch, ram_mix, cfg, pipe, steps, testset if dataset == "fundus" else None)
+        (sa, ca, ra, ta), (sb, cb, rb, tb) = out["scan_window_1"], out["graph"]
+        want = dict(k1=steps, k2=8 * steps, k3=8 * steps)
+        entry = dict(run=dataset, steps=steps, deterministic=True, state_bit_equal=_same_tree(np, ta, tb),
+                     logged_rows_bit_equal=ra == rb and len(ra) == 2 * steps,
+                     launches={"scan_window_1": ca, "graph": cb},
+                     scan_window={"scan_window_1": sa["scan_window"], "graph": sb["scan_window"]},
+                     graph_replays=sb["graph_replays"], capture_s=sb["capture_s"],
+                     graph_pool_bytes=sb["graph_pool_bytes"],
+                     median_step_ms={"scan_window_1": sa["median_step_ms"], "graph": sb["median_step_ms"]},
+                     images_per_sec={"scan_window_1": sa["images_per_sec"], "graph": sb["images_per_sec"]})
+        emit("scan", **entry)
+        results["bit_equality"][dataset] = entry
+        if not (entry["state_bit_equal"] and entry["logged_rows_bit_equal"]):
+            raise SystemExit(f"scan {dataset}: graph windows and --scan_window 1 differ: {entry}")
+        if any({k: c[k] for k in want} != want for c in (ca, cb)):
+            raise SystemExit(f"scan {dataset}: launches {entry['launches']}, expected {want} in both runs")
+        if sa["graph_replays"] != 0 or sb["graph_replays"] != steps - 2 or sb["scan_window"] != len(pipe):
+            raise SystemExit(f"scan {dataset}: W {entry['scan_window']}, replays {sb['graph_replays']}")
+
+    losses = {}
+    turns = [("fundus", False, (False, True, True, False)), ("fundus", True, (False, True)),
+             ("prostate", False, (False, True)), ("prostate", True, (False, True))]
+    for dataset, bf16, modes in turns:
+        name = dataset + ("_bf16" if bf16 else "")
+        cfg = config(dataset, os.path.join(SCAN_OUT, "timing"), bf16)
+        for i, graphs in enumerate(modes):
+            pipe = fundus_pipe(cfg) if dataset == "fundus" else prostate_pipe(cfg)
+            entry, loss = scan_timing(torch, np, name, cfg, pipe, graphs)
+            entry.update(turn=i, card=card)
+            emit("scan", **entry)
+            results["timing"].append(entry)
+            losses.setdefault(name, []).append((graphs, loss))
+            if not entry["losses_finite"] or entry["graphed"] != graphs:
+                raise SystemExit(f"scan timing {name}: {entry}")
+    (_, e1), (_, g1), (_, g2), (_, e2) = losses["fundus"]
+    rel = lambda a, c: float(np.max(np.abs(a - c) / np.maximum(np.abs(c), 1e-6)))
+    results["default_mode_loss_distance"] = dict(graph_vs_eager=rel(g1, e1), graph_vs_graph=rel(g2, g1),
+                                                 eager_vs_eager=rel(e2, e1), steps=len(e1))
+    emit("scan_summary", card=card, **results["default_mode_loss_distance"],
+         launches_by_run={f"scan_{d}_{m}": e["launches"][m]["k1"] for d, e in results["bit_equality"].items()
+                          for m in ("scan_window_1", "graph")})
+    return results
+
+
 # --- the single-card training variants ------------------------------------------------
 
 
@@ -1864,17 +2131,20 @@ def exact_float32(torch):
 
 
 @contextlib.contextmanager
-def k1_held_to_plain(ram_mix, errs, calls):
+def k1_held_to_plain(torch, ram_mix, errs, calls):
     """K1's first `calls` calls of the run also run the plain version on
     copies of their inputs, and their largest difference (a device tensor,
-    read after the run) goes to `errs`.  With `calls` the step timer's
-    warm-up steps the timed steps carry no check.  The plain version
-    launches nothing, so K1's counts stay the run's own."""
+    read after the run) goes to `errs`.  With `calls` the run's eager
+    warm-up steps (GRAPH_WARMUP_STEPS, before a graph run's capture; also
+    the step timer's warm-up) the timed steps carry no check, and a call
+    inside a capture is never checked (it would run nothing but record the
+    plain version into the graph).  The plain version launches nothing, so
+    K1's counts stay the run's own."""
     kernel = ram_mix.mix_spectrum
     left = [calls]
 
     def checked(re, im, amp_t, ratio, band, *, full, delta=False):
-        if not left[0]:
+        if not left[0] or torch.cuda.is_current_stream_capturing():
             return kernel(re, im, amp_t, ratio, band, full=full, delta=delta)
         left[0] -= 1
         want = ram_mix.mix_spectrum_plain(re.clone(), im.clone(), amp_t, ratio, band, full=full, delta=delta)
@@ -1893,27 +2163,28 @@ def variant_fit(torch, np, ram_mix, name, cfg, pipe, steps, testset=None):
     steps, bit-equal.  K2's and K3's launches (eval included) are reported."""
     from ramdsir_tpu_torch.ops import upsample
     from ramdsir_tpu_torch.train.loop import fit
-    from ramdsir_tpu_torch.utils.profiler import StepTimer
+    from ramdsir_tpu_torch.train.steps import GRAPH_WARMUP_STEPS
 
     shutil.rmtree(cfg.save_path, ignore_errors=True)
     sync(torch)
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    ram_mix.launches, upsample.launches, upsample.forward_launches = 0, 0, 0
+    zero_launches(torch)
     errs = []
     t0 = time.perf_counter()
-    checked = StepTimer().warmup
-    with k1_held_to_plain(ram_mix, errs, checked):
+    checked = GRAPH_WARMUP_STEPS
+    with k1_held_to_plain(torch, ram_mix, errs, checked):
         summary = fit(cfg, max_steps=steps, pipeline=pipe, testset=testset)
     sync(torch)
     wall = time.perf_counter() - t0
+    counts = read_launches(torch)
     rows = [json.loads(line) for line in open(os.path.join(cfg.save_path, "log", "metrics.jsonl"))]
     losses = [{k: v for k, v in r.items() if k.startswith("loss/")} for r in rows if "loss/loss" in r]
     finite = len(losses) == steps and all(np.all(np.isfinite(list(r.values()))) for r in losses)
     evals = [r["eval/avg_dice"] for r in rows if "eval/avg_dice" in r]
     entry = dict(
-        run=name, steps=summary["steps"], k1_launches=ram_mix.launches, k2_launches=upsample.launches,
-        k3_launches=upsample.forward_launches,
+        run=name, steps=summary["steps"], k1_launches=counts["k1"], k2_launches=counts["k2"],
+        k3_launches=counts["k3"], host_launches=counts["host"],
         k1_max_abs_err=max(float(e) for e in errs) if errs else None, k1_checked_steps=checked,
         losses_finite=finite,
         first_loss=losses[0]["loss/loss"], last_loss=losses[-1]["loss/loss"],
@@ -2182,15 +2453,15 @@ def ddp_rank(rank, device, job):
         dist.barrier()
         if on_card:
             torch.cuda.reset_peak_memory_stats(device)
-        ram_mix.launches = 0
+        zero_launches(torch)
         errs = []
         with mock.patch.object(loop, "init_state", capture), mock.patch.object(train_steps, "all_reduce_grads", timed_grads), \
-                mock.patch.object(dist, "all_reduce", counted), k1_held_to_plain(ram_mix, errs, 2):
+                mock.patch.object(dist, "all_reduce", counted), k1_held_to_plain(torch, ram_mix, errs, 2):
             summary = loop.fit(rcfg, max_steps=job["steps"], pipeline=pipe,
                                testset=job["testset"] if rank == 0 else None)
         if on_card:
             torch.cuda.synchronize(device)
-        launches = ram_mix.launches
+        launches = read_launches(torch)["k1"]
         state = captured["state"]
         flat = torch.cat([t.detach().reshape(-1).float() for m in state.models.values()
                           for t in m.state_dict().values()])
@@ -2676,6 +2947,7 @@ def run_phases(torch, card, name, bw):
     phase_zoo(torch, np)
 
     phase_profile(torch, ram_mix, arrays, prostate)
+    scan = phase_scan(torch, np, ram_mix, arrays, testset, prostate, data_root, card)
     phase_step_parity(torch, np, ram_mix, arrays)
     phase_bf16_step_parity(torch, np, ram_mix, arrays)
     phase_eval_parity(torch, np, testset)
@@ -2690,12 +2962,13 @@ def run_phases(torch, card, name, bw):
         k = kernels[f"{case}@{S}x{S}"]
         # launches: the run at this entry's shape; the fundus variant runs
         # (some at other batches) only in launches_by_run
-        variants = {**variant_launches["fundus"], **ddp_launches["fundus"]} if run == "default" else {}
+        scan_runs = {f"scan_fundus_{m}": e["k1"] for m, e in scan["bit_equality"]["fundus"]["launches"].items()}
+        variants = {**variant_launches["fundus"], **ddp_launches["fundus"], **scan_runs} if run == "default" else {}
         if run == "ram_use_pallas":  # the host loaders' batches carry donor images: full mode
             variants = {name: r["k1_launches"] for name, r in host_runs.items()}
         line["kernels"].append({
             "name": f"ram_mix[{label}]", "route": "cuda", "source": SOURCE_REL, "replaces": REPLACES,
-            "launches": runs[run]["k1_launches"],
+            "launches": runs[run]["k1_launches"], "host_launches": runs[run]["k1_host_launches"],
             "launches_by_run": {run: runs[run]["k1_launches"], **variants},
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
@@ -2706,8 +2979,11 @@ def run_phases(torch, card, name, bw):
     line["kernels"].append({
         "name": f"ram_mix[band,delta]@prostate {PB}x{C}x{PS}x{PS}", "route": "cuda", "source": SOURCE_REL,
         "replaces": REPLACES, "launches": prostate_run["k1_launches"],
+        "host_launches": prostate_run["k1_host_launches"],
         "launches_by_run": {"prostate": prostate_run["k1_launches"], **variant_launches["prostate"],
-                            **ddp_launches["prostate"]},
+                            **ddp_launches["prostate"],
+                            **{f"scan_prostate_{m}": e["k1"]
+                               for m, e in scan["bit_equality"]["prostate"]["launches"].items()}},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
         "floor_ms": k["floor_ms"], "kernel_ms": k["kernel_ms"], "ms_clean_flush": k["ms_clean_flush"],
@@ -2727,6 +3003,7 @@ def run_phases(torch, card, name, bw):
             line["kernels"].append({
                 "name": f"{kernel}[{run} step: 8 shapes]", "route": "cuda", "source": SOURCE_K2,
                 "replaces": REPLACES_K2, "launches": det[launches]["deterministic"],
+                "host_launches": det["host_launches"]["deterministic"][launches[:2]],
                 "max_abs_err": max(c["max_abs_err"] for c in step_cases), "ms": total("ms"),
                 "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"), "bound_by": "bytes",
                 "library_ms": total("library_ms"), "kernel_ms": total("kernel_ms"),

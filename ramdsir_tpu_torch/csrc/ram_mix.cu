@@ -142,7 +142,14 @@ struct MixArgs {
   Grid g;     // iteration space
   unsigned band;    // b = floor(min(h, w) * L)
   unsigned height;  // spectrum rows; band rows past b sit at +height-(2b+1)
+  unsigned long long* launches;  // the wrapper's device counter of this path, or null
 };
+
+// One count a launch, by the grid's first thread, so that a run can read
+// how often the kernel ran, CUDA graph replays included.
+__device__ __forceinline__ void count_launch(const MixArgs& a) {
+  if (a.launches != nullptr && blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(a.launches, 1ull);
+}
 
 __device__ __forceinline__ bool in_band_rows(const MixArgs& a, unsigned row) {
   return row <= a.band || row >= a.height - a.band;
@@ -183,6 +190,7 @@ __device__ __forceinline__ void load_donor(const MixArgs& a, unsigned plane, uns
 // Full mode on one contiguous interleaved complex spectrum, 16-byte aligned:
 // one float4 (two complex elements) a thread.
 __global__ void __launch_bounds__(kThreads) mix_full_vec_kernel(const MixArgs a) {
+  count_launch(a);
   const unsigned i = blockIdx.x * kThreads + threadIdx.x;
   const unsigned e = 2 * i;
   if (e >= a.g.count) return;
@@ -230,6 +238,7 @@ __global__ void __launch_bounds__(kThreads) mix_full_vec_kernel(const MixArgs a)
 // contiguous: one element a thread at its flat index, so the loads of z go
 // out before the index arithmetic that the donor's load waits for.
 __global__ void __launch_bounds__(kThreads) mix_delta_flat_kernel(const MixArgs a) {
+  count_launch(a);
   const unsigned e = blockIdx.x * kThreads + threadIdx.x;
   if (e >= a.g.count) return;
   const Pos p = a.g.locate(e);
@@ -247,6 +256,7 @@ __global__ void __launch_bounds__(kThreads) mix_delta_flat_kernel(const MixArgs 
 // place on the interleaved spectrum takes this path too.
 template <bool FULL, bool DELTA>
 __global__ void __launch_bounds__(kThreads) mix_strided_kernel(const MixArgs a) {
+  count_launch(a);
   const unsigned e = blockIdx.x * kThreads + threadIdx.x;
   if (e >= a.g.count) return;
   const Pos p = a.g.locate(e);
@@ -276,7 +286,7 @@ extern "C" int ram_mix_launch(int path, const float* re, const float* im, const 
                               long long a_n, long long a_c, long long a_h, long long a_w,
                               long long o_n, long long o_c, long long o_h, long long o_w,
                               int n, int c, int rows, int cols, int band, int height,
-                              int full, int delta, void* stream) {
+                              int full, int delta, unsigned long long* launches, void* stream) {
   MixArgs args;
   args.re = re;
   args.im = im;
@@ -291,6 +301,7 @@ extern "C" int ram_mix_launch(int path, const float* re, const float* im, const 
                 static_cast<unsigned>(n) * c * rows * cols};
   args.band = band;
   args.height = height;
+  args.launches = launches;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   // one thread per element, or per pair of elements in full_vec
   const unsigned units = path == kFullVec ? (args.g.count + 1) / 2 : args.g.count;

@@ -184,6 +184,13 @@ __device__ __forceinline__ Place place(unsigned total, int groups, int rows, int
   return at;
 }
 
+// One count a launch, by the grid's first thread, into the wrapper's device
+// counter (null: none), so that a run can read how often the kernel ran,
+// CUDA graph replays included.
+__device__ __forceinline__ void count_launch(unsigned long long* launches) {
+  if (launches != nullptr && blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(launches, 1ull);
+}
+
 // K2.  grad: (planes, 2h, 2w); out: (planes, h, w).  One thread: V input
 // columns, `rows` input rows.  Input row i gathers the column passes of
 // gradient rows 2i-1 (a), 2i (b), 2i+1 (c) and 2i+2 (d); row i+1 gathers c
@@ -191,7 +198,8 @@ __device__ __forceinline__ Place place(unsigned total, int groups, int rows, int
 template <typename T, int V, bool VEC>
 __global__ void __launch_bounds__(BLOCK)
 upsample2x_backward_kernel(const T* __restrict__ grad, T* __restrict__ out, unsigned total, int h, int w, int groups,
-                           int rows, int strips) {
+                           int rows, int strips, unsigned long long* launches) {
+  count_launch(launches);
   const Place at = place(total, groups, rows, strips);
   const long long gw = 2LL * w;
   const T* g = grad + static_cast<long long>(at.plane) * (2LL * h) * gw + 2LL * at.q * V;
@@ -257,7 +265,8 @@ upsample2x_backward_kernel(const T* __restrict__ grad, T* __restrict__ out, unsi
 template <typename T, int V, bool VEC>
 __global__ void __launch_bounds__(BLOCK)
 upsample2x_forward_kernel(const T* __restrict__ x, T* __restrict__ y, unsigned total, int h, int w, int groups,
-                          int rows, int strips) {
+                          int rows, int strips, unsigned long long* launches) {
+  count_launch(launches);
   const Place at = place(total, groups, rows, strips);
   const long long yw = 2LL * w;
   const T* xp = x + static_cast<long long>(at.plane) * h * w + static_cast<long long>(at.q) * V;
@@ -337,26 +346,28 @@ Grid grid(long long planes, int h, int w, int v) {
 bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15u) == 0; }
 
 template <typename T, int V>
-int launch_backward(const void* in, void* out, long long planes, int h, int w, cudaStream_t s, bool vec) {
+int launch_backward(const void* in, void* out, long long planes, int h, int w, cudaStream_t s, bool vec,
+                    unsigned long long* launches) {
   const Grid g = grid(planes, h, w, vec ? V : 1);
   if (vec)
     upsample2x_backward_kernel<T, V, true><<<g.blocks, BLOCK, 0, s>>>(
-        static_cast<const T*>(in), static_cast<T*>(out), g.total, h, w, g.groups, g.rows, g.strips);
+        static_cast<const T*>(in), static_cast<T*>(out), g.total, h, w, g.groups, g.rows, g.strips, launches);
   else
     upsample2x_backward_kernel<T, 1, false><<<g.blocks, BLOCK, 0, s>>>(
-        static_cast<const T*>(in), static_cast<T*>(out), g.total, h, w, g.groups, g.rows, g.strips);
+        static_cast<const T*>(in), static_cast<T*>(out), g.total, h, w, g.groups, g.rows, g.strips, launches);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int V>
-int launch_forward(const void* in, void* out, long long planes, int h, int w, cudaStream_t s, bool vec) {
+int launch_forward(const void* in, void* out, long long planes, int h, int w, cudaStream_t s, bool vec,
+                   unsigned long long* launches) {
   const Grid g = grid(planes, h, w, vec ? V : 1);
   if (vec)
     upsample2x_forward_kernel<T, V, true><<<g.blocks, BLOCK, 0, s>>>(
-        static_cast<const T*>(in), static_cast<T*>(out), g.total, h, w, g.groups, g.rows, g.strips);
+        static_cast<const T*>(in), static_cast<T*>(out), g.total, h, w, g.groups, g.rows, g.strips, launches);
   else
     upsample2x_forward_kernel<T, 1, false><<<g.blocks, BLOCK, 0, s>>>(
-        static_cast<const T*>(in), static_cast<T*>(out), g.total, h, w, g.groups, g.rows, g.strips);
+        static_cast<const T*>(in), static_cast<T*>(out), g.total, h, w, g.groups, g.rows, g.strips, launches);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -377,19 +388,19 @@ int check(int dtype, int vec, const void* in, const void* out, long long planes,
 // Each returns the launch's cudaError_t (0 on success); a refused launch
 // never runs, so the wrapper raises on it.
 extern "C" int upsample2x_backward_launch(int dtype, int vec, const void* grad, void* out, long long planes, int h,
-                                          int w, void* stream) {
+                                          int w, unsigned long long* launches, void* stream) {
   if (const int err = check(dtype, vec, grad, out, planes, h, w)) return err;
   if (planes == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch_backward<float, 4>(grad, out, planes, h, w, s, vec != 0)
-                    : launch_backward<__nv_bfloat16, 8>(grad, out, planes, h, w, s, vec != 0);
+  return dtype == 0 ? launch_backward<float, 4>(grad, out, planes, h, w, s, vec != 0, launches)
+                    : launch_backward<__nv_bfloat16, 8>(grad, out, planes, h, w, s, vec != 0, launches);
 }
 
 extern "C" int upsample2x_forward_launch(int dtype, int vec, const void* x, void* y, long long planes, int h, int w,
-                                         void* stream) {
+                                         unsigned long long* launches, void* stream) {
   if (const int err = check(dtype, vec, x, y, planes, h, w)) return err;
   if (planes == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch_forward<float, 4>(x, y, planes, h, w, s, vec != 0)
-                    : launch_forward<__nv_bfloat16, 8>(x, y, planes, h, w, s, vec != 0);
+  return dtype == 0 ? launch_forward<float, 4>(x, y, planes, h, w, s, vec != 0, launches)
+                    : launch_forward<__nv_bfloat16, 8>(x, y, planes, h, w, s, vec != 0, launches);
 }

@@ -5,6 +5,8 @@ A library is built at first use on the machine with the card, never at
 import, into `ramdsir_tpu_torch/_build/`, keyed on a hash of the source and
 the flags.  It is compiled under a private name and renamed, so processes
 building at once never load a half-written file.  A failed build raises.
+`device_counter` makes the counter on the card that a kernel adds to each
+time it runs.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -60,3 +64,13 @@ def build_library(source: str) -> str:
         if os.path.exists(tmp):
             os.remove(tmp)
     return path
+
+
+def device_counter(dev, slots: int):
+    """The (slots,) int64 counter on `dev` that a kernel adds to as it
+    runs, made at the first launch on the device.  A CUDA graph keeps its
+    address, so it is never made during a capture (that would also capture
+    its zeroing)."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a kernel's device counter is made before a CUDA graph capture, not during one")
+    return torch.zeros(slots, dtype=torch.int64, device=dev)

@@ -48,10 +48,16 @@ def _sums(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     return tuple(all_reduce_sum(torch.stack(sums)).unbind())
 
 
+def _scalar(x: torch.Tensor, value: float) -> torch.Tensor:
+    """A 0-d tensor of x's dtype on x's device, filled there: no copy from
+    the host, which a CUDA-graph capture refuses and an eager step waits for."""
+    return torch.full((), value, dtype=x.dtype, device=x.device)
+
+
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """jnp.clip as max-then-min: like JAX, torch.maximum/minimum split the
     gradient evenly at a tie, where torch.clamp passes all of it."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    return torch.minimum(torch.maximum(x, _scalar(x, lo)), _scalar(x, hi))
 
 
 def bce_with_logits_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -153,8 +159,8 @@ def bce_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     pred = pred.float()
     target = target.float()
     floor = 1.18e-38
-    log_p = torch.log(torch.maximum(pred, pred.new_tensor(floor)))
-    log_1p = torch.log(torch.maximum(1.0 - pred, pred.new_tensor(floor)))
+    log_p = torch.log(torch.maximum(pred, _scalar(pred, floor)))
+    log_1p = torch.log(torch.maximum(1.0 - pred, _scalar(pred, floor)))
     return -torch.mean(target * log_p + (1.0 - target) * log_1p)
 
 

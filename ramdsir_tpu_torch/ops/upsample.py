@@ -17,14 +17,18 @@ and bound with ctypes.
 `upsample2x_forward` and `upsample2x_backward` take the plain versions for
 tensors on the CPU (the tests) and launch the kernels for CUDA tensors; a
 CUDA tensor they cannot take raises, they never fall back.  `launches`
-counts K2's launches, `forward_launches` K3's.  `Upsample2x` is the upsample
+counts K2's launches on the host, `forward_launches` K3's; a launch
+recorded into a CUDA graph counts there once.  Each kernel also adds one to
+a counter on its device each time it runs, a graph's replays included:
+`device_launches()` reads those counts and `zero_device_launches()` sets
+them to 0.  `Upsample2x` is the upsample
 with both kernels on the card; `models/unet.upsample2x` takes it while
 torch's deterministic mode is on.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -36,6 +40,8 @@ VEC_COLUMNS = {torch.float32: 4, torch.bfloat16: 8}  # input columns a thread ta
 
 launches = 0  # K2 launches; upsample2x_backward adds one per launch
 forward_launches = 0  # K3 launches; upsample2x_forward adds one per launch
+ENTRIES = ("upsample2x_backward_launch", "upsample2x_forward_launch")  # the slots of a device counter
+_device_counts: Dict[torch.device, torch.Tensor] = {}  # per device, (2,) int64: K2's and K3's own counts
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -51,10 +57,26 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(build_library())
         for fn in (lib.upsample2x_backward_launch, lib.upsample2x_forward_launch):
             fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def device_launches() -> Dict[str, int]:
+    """How often K2 ("backward") and K3 ("forward") ran on the card, summed
+    over devices (reading them waits for the devices)."""
+    totals = {"backward": 0, "forward": 0}
+    for counts in _device_counts.values():
+        k2, k3 = counts.tolist()
+        totals["backward"] += k2
+        totals["forward"] += k3
+    return totals
+
+
+def zero_device_launches() -> None:
+    for counts in _device_counts.values():
+        counts.zero_()
 
 
 # --- plain versions ----------------------------------------------------------------
@@ -189,10 +211,13 @@ def _launch(entry: str, src: torch.Tensor, dst: torch.Tensor) -> None:
     small = src if src.numel() <= dst.numel() else dst
     n, c, h, w = small.shape
     dev = src.device
+    if dev not in _device_counts:
+        _device_counts[dev] = cuda_build.device_counter(dev, len(ENTRIES))
+    counter = _device_counts[dev][ENTRIES.index(entry):]
     with torch.cuda.device(dev):
         err = getattr(_library(), entry)(
             DTYPES.index(src.dtype), int(vector_path(src, dst)), src.data_ptr(), dst.data_ptr(), n * c, h, w,
-            torch.cuda.current_stream(dev).cuda_stream,
+            counter.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{entry.replace('_launch', '')} kernel launch failed: CUDA error {err}")

@@ -1,5 +1,5 @@
-"""The training loop (PyTorch port of `ramdsir_tpu/train/loop.py:158-478`,
-fundus and prostate, one device, one step per dispatch).
+"""The training loop (PyTorch port of `ramdsir_tpu/train/loop.py:158-478`),
+fundus and prostate.
 
 Every `eval_every` epochs and at the end, `fit` evaluates on the target
 domain (running statistics): the fundus test split (`eval_fundus`) or the
@@ -32,8 +32,9 @@ epoch's end (medians of the host's wait for the loader and of the copy's
 device time, the epoch's median step, the memory high-water marks), and
 the summary's `host_input`.
 
-Every `cfg.log_images_every` steps (and at step 0) the step returns its
-viz slices; `utils.logging.DeviceVizRing` copies them off the card without
+Every `cfg.log_images_every` steps (and at step 0; with windows, at the
+last step of a window that holds such a step) the step returns its viz
+slices; `utils.logging.DeviceVizRing` copies them off the card without
 a synchronise, and at the next eval boundary and at the end `_log_viz`
 writes the reference's image grids as PNGs under log/images/.
 
@@ -52,9 +53,25 @@ collective) while the others wait at a barrier.  The summary's img/s is the
 global batch's.
 
 `cfg.trace_dir` (--trace_dir) profiles steps 2-12 (`utils.profiler.TraceWindow`)
-into a Chrome trace there (under a group, rank 0's).  `cfg.scan_window` is
-recorded and changes nothing: in the JAX package it groups steps into one dispatch with the
-numerics of single steps; here each step is launched on its own.
+into a Chrome trace there (under a group, rank 0's).
+
+Scan windows (`cfg.scan_window`, --scan_window; `ramdsir_tpu/train/loop.py:230-355`):
+with the device pipeline the run goes in segments, the epochs up to the
+next eval, their plans concatenated, and each segment in windows of W
+steps (`scan_window_size`: the flag, or the largest divisor <= 256 of the
+segment's steps), each window min(W, left in the segment, left in the
+run) steps through the window step (`train.steps.ScanTrainSteps`).  On a
+card outside a process group a window is replays of a CUDA graph of one
+step, captured after the run's first two steps; on the CPU and under a
+group its steps run eagerly.  W = 1 (--scan_window 1, --trace_dir, and the
+host loaders, which train a step at a time) launches each step on its own.
+No step waits for the device: the steps' metrics go to
+`utils.logging.DeviceMetricsRing` (one window's (w,) tables at a time, read
+back when it fills, at each eval and at the end; a logged lr is float32),
+the image grid of a window that holds a log step is its last step's,
+written at that step, and `utils.profiler.StepTimer` times the windows
+between CUDA events.  The summary names W (`scan_window`) and the graph's
+replays, capture seconds and pool bytes.
 """
 from __future__ import annotations
 
@@ -66,7 +83,7 @@ import resource
 import statistics
 import time
 from collections import deque
-from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Union
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -85,7 +102,7 @@ from ramdsir_tpu_torch.train.evaluate import append_csv_log, eval_fundus, eval_p
 from ramdsir_tpu_torch.train.state import init_state
 from ramdsir_tpu_torch.train.steps import check_supported, make_predict_fn, make_train_step
 from ramdsir_tpu_torch.utils.device import resolve_device
-from ramdsir_tpu_torch.utils.logging import DeviceVizRing, MetricsWriter, decode_seg_map, make_grid
+from ramdsir_tpu_torch.utils.logging import DeviceMetricsRing, DeviceVizRing, MetricsWriter, decode_seg_map, make_grid
 from ramdsir_tpu_torch.utils.profiler import StepTimer, TraceWindow
 from ramdsir_tpu_torch.utils.torch_compat import export_torch_checkpoint
 
@@ -380,6 +397,31 @@ def _fit(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset) -> 
         getattr(pipeline, "shutdown", lambda: None)()  # the process loader's workers
 
 
+SCAN_WINDOW_CAP = 256  # the largest automatic window (`ramdsir_tpu/train/loop.py:252`)
+
+
+def scan_window_size(
+    cfg: TrainConfig, steps_per_epoch: int, eval_every: int, max_steps: Optional[int], device_data: bool
+) -> Tuple[int, int]:
+    """(W, segment epochs): the JAX package's choice of the scan window
+    (`ramdsir_tpu/train/loop.py:235-258`).  A segment is the epochs up to
+    the next eval, min(eval_every, epochs).  --scan_window sets W; by
+    default W is the largest divisor <= 256 of the segment's steps (of
+    max_steps where that is fewer), or min(those steps, 256) where none is.
+    W = 1 and one-epoch segments with --trace_dir and with the host loaders
+    (device_data False)."""
+    if not device_data or cfg.trace_dir:
+        return 1, 1
+    seg_epochs = max(1, min(eval_every, cfg.epochs))
+    if cfg.scan_window:
+        return max(1, cfg.scan_window), seg_epochs
+    effective = steps_per_epoch * seg_epochs
+    if max_steps is not None:
+        effective = min(effective, max_steps)
+    divisors = [d for d in range(2, SCAN_WINDOW_CAP + 1) if effective % d == 0]
+    return max(1, max(divisors) if divisors else min(effective, SCAN_WINDOW_CAP)), seg_epochs
+
+
 def _train(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset, save_dir) -> Dict:
     device_data = getattr(pipeline, "device_data", None)  # None: the host loaders
     steps_per_epoch = len(pipeline)
@@ -395,54 +437,92 @@ def _train(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset, s
         if is_main:
             print(f"resumed from {cfg.checkpoint_resume} at step {state.step}", flush=True)
     replicate_state(state)  # rank 0's state on every rank; nothing without a group
-    train_step = make_train_step(cfg, total_iters, batch_size_list=pipeline.batch_sizes, device_data=device_data)
+    scan_w, seg_epochs = scan_window_size(cfg, steps_per_epoch, eval_every, max_steps, device_data is not None)
+    train_step = make_train_step(cfg, total_iters, batch_size_list=pipeline.batch_sizes, device_data=device_data,
+                                 scan=device_data is not None, window=scan_w)
     predict = make_predict_fn(cfg, state.models, bn_adapt=False)
     writer = MetricsWriter(os.path.join(save_dir, "log")) if is_main else _NoWriter()
+    ring = DeviceMetricsRing(writer, log_interval=cfg.log_interval)
     keeper = BestKeeper(save_dir) if is_main else None
     timer = StepTimer(device=device)
     tracer = TraceWindow(cfg.trace_dir, device) if cfg.trace_dir and is_main else None
     vizring = DeviceVizRing()
     log_viz = lambda viz, s: _log_viz(writer, viz, s, cfg)
+    logs_images = lambda first, n: bool(cfg.log_images_every) and any(
+        (first + i) % cfg.log_images_every == 0 for i in range(n))
     host_rows: List[Dict] = []
     summary: Dict = {}
 
     step = state.step
     done = max_steps is not None and step >= max_steps
-    epoch = 0
-    while epoch < cfg.epochs and step < total_iters and not done:
-        t_ep = time.time()
-        stream = None if device_data is not None else HostToDevice(pipeline, device, max(2, cfg.prefetch))
-        first_timed = len(timer.step_seconds)
-        for row in stream or pipeline:
+
+    def left() -> int:
+        """Steps the run may still take."""
+        return min(total_iters, max_steps if max_steps is not None else total_iters) - step
+
+    def run_scan_segment(plan: Dict[str, np.ndarray]) -> None:
+        """The segment's windows (`ramdsir_tpu/train/loop.py:294-355`):
+        min(W, left in the segment, left in the run) steps each, their
+        metrics into the ring, and the grid of a window that holds a log
+        step written at its last step."""
+        nonlocal step
+        pos, seg_len = 0, len(plan["img_idx"])
+        while pos < seg_len and left() > 0:
+            w = min(scan_w, seg_len - pos, left())
+            want_viz = logs_images(step, w)
             if tracer:
                 tracer.before_step(step)
-            log_images = bool(cfg.log_images_every) and step % cfg.log_images_every == 0
-            metrics = train_step(state, row, generator, viz=log_images)
+            metrics, viz = train_step(state, {k: v[pos : pos + w] for k, v in plan.items()}, generator,
+                                      viz=want_viz, timer=timer)
+            if tracer:
+                tracer.after_step(step)
+            if is_main:
+                ring.append(step, metrics)
+                if want_viz:
+                    vizring.append(step + w - 1, viz)  # viz assembled on every rank (a collective)
+            step += w
+            pos += w
+
+    def run_host_epoch(stream: HostToDevice) -> None:
+        """One epoch of host batches, a step each."""
+        nonlocal step
+        for batch in stream:
+            if tracer:
+                tracer.before_step(step)
+            log_images = logs_images(step, 1)
+            metrics = train_step(state, batch, generator, viz=log_images)
             if log_images:
                 viz = metrics.pop("_viz")  # assembled on every rank (a collective), kept by rank 0
                 if is_main:
                     vizring.append(step, viz)
-            lr = float(metrics.pop("lr"))
-            names = list(metrics)
-            values = torch.stack([metrics[k] for k in names]).tolist()  # one device sync
             if tracer:
                 tracer.after_step(step)
             timer.tick(b_real)
-            if step % cfg.log_interval == 0:
-                writer.add_scalars(dict(zip(names, values)), step, prefix="loss/")
-                writer.add_scalars({"lr": lr}, step)
+            if is_main and step % cfg.log_interval == 0:
+                ring.append(step, metrics)
             step += 1
-            if max_steps is not None and step >= max_steps:
-                done = True
-                break
-            if step >= total_iters:  # a resumed run ends with the schedule
-                break
-        if stream is not None:
+            if left() <= 0:
+                return
+
+    epoch = 0
+    while epoch < cfg.epochs and left() > 0 and not done:
+        t_ep = time.time()
+        if device_data is not None:
+            n_ep = min(seg_epochs, cfg.epochs - epoch)
+            plans = [pipeline.epoch_plan() for _ in range(n_ep)]
+            run_scan_segment({k: np.concatenate([p[k] for p in plans]) for k in plans[0]})
+            epoch += n_ep - 1  # the segment's last epoch, which the eval row names
+        else:
+            stream = HostToDevice(pipeline, device, max(2, cfg.prefetch))
+            first_timed = timer.timed_steps
+            run_host_epoch(stream)
             host_rows.append(_input_row(stream, timer.step_seconds[first_timed:], b_real, device))
             writer.add_scalars({"epoch": epoch, **host_rows[-1]}, step, prefix="input/")
+        done = max_steps is not None and step >= max_steps
         at_eval = (epoch + 1) % eval_every == 0 or done
         if at_eval and is_main:
             timer.mark()
+            ring.flush()  # the steps' rows reach the log before the eval row
             writer.flush()
             with timer.paused():
                 vizring.flush(log_viz)
@@ -461,10 +541,14 @@ def _train(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset, s
         epoch += 1
 
     timer.mark()
+    windows = dict(scan_window=scan_w, graph_replays=getattr(train_step, "replays", 0),
+                   capture_s=getattr(train_step, "capture_seconds", None),
+                   graph_pool_bytes=getattr(train_step, "graph_pool_bytes", None))
     if not is_main:
         torch.distributed.barrier()  # rank 0 has written the run's files
         return dict(steps=step, rank=distributed.rank(), images_per_sec=timer.items_per_sec,
-                    median_step_ms=timer.median_step_ms)
+                    median_step_ms=timer.median_step_ms, **windows)
+    ring.flush()
     vizring.flush(log_viz)
     if tracer:
         tracer.close()  # a run that ended before the window's last step
@@ -479,7 +563,7 @@ def _train(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset, s
     summary.update(
         best=keeper.best, best_checkpoint=keeper.best_path, steps=step,
         images_per_sec=timer.items_per_sec, median_step_ms=timer.median_step_ms,
-        final_checkpoint=final_path, resume_checkpoint=resume_path,
+        final_checkpoint=final_path, resume_checkpoint=resume_path, **windows,
     )
     if host_rows:
         summary["host_input"] = dict(

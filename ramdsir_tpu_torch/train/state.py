@@ -6,6 +6,13 @@ optimizer steps taken.  `state_to_tree` and `load_state_tree` convert the
 whole state to and from the layout of the JAX package's
 `flax.serialization.to_state_dict(TrainState)`: {params, batch_stats,
 opt_state: {count, mu, nu}, step}, numpy leaves.
+
+On a CUDA device Adam is built capturable (`capturable=True`, each
+group's lr a 0-d float32 tensor on the card, its step count a float32
+tensor there), so that the train step, Adam's update included, can be
+captured into a CUDA graph and replayed (`train.steps`); the eager steps on
+the card use the same optimizer, so both run the same kernels.  On the CPU
+Adam is the plain one, with float lrs and CPU step counts.
 """
 from __future__ import annotations
 
@@ -59,18 +66,21 @@ def init_state(
     cfg: TrainConfig, generator: torch.Generator, device: Union[str, torch.device] = "cuda"
 ) -> TrainState:
     """Models initialised from `generator` (on the CPU, so the weights do not
-    depend on the device), moved to `device`, with Adam over them.  Each
-    module is one param group; the train step sets each group's lr every
-    step (poly schedule, encoder x0.5 under --rec)."""
+    depend on the device), moved to `device`, with Adam over them (capturable
+    on a CUDA device, the module docstring).  Each module is one param
+    group; the train step sets each group's lr every step (poly schedule,
+    encoder x0.5 under --rec)."""
     dev = resolve_device(device)
     cfg = cfg.resolve()
     models = build_models(cfg)
     for m in models.values():
         init_weights(m, generator)
         m.to(dev).train()
+    capturable = dev.type == "cuda"
+    lr = lambda: torch.tensor(cfg.lr, dtype=torch.float32, device=dev) if capturable else cfg.lr
     optimizer = torch.optim.Adam(
-        [{"params": m.parameters(), "lr": cfg.lr} for m in models.values()],
-        lr=cfg.lr, betas=(ADAM_B1, ADAM_B2), eps=ADAM_EPS,
+        [{"params": m.parameters(), "lr": lr()} for m in models.values()],
+        lr=cfg.lr, betas=(ADAM_B1, ADAM_B2), eps=ADAM_EPS, capturable=capturable,
     )
     return TrainState(models=models, optimizer=optimizer)
 

@@ -57,6 +57,19 @@ a group and with pad_to_multiple the step takes the padded global batch on
 one process, as the JAX package's padded single-device step does; without
 either it is the single-process step, unchanged.
 
+Windows (`--scan_window`; `ramdsir_tpu/train/steps.py:469-502`): with the
+device pipeline, `make_train_step(..., scan=True)` gives `ScanTrainSteps`,
+which runs a window of w steps from a (w, B) plan with no host work a step.
+Every step, single or in a window, runs one body: it reads its index row,
+draws and lr from row `pos` of static buffers on the device
+(`StepInputs`, filled once a window through pinned memory), sets each Adam
+group's lr from there, writes its metrics into the window's (w, K) table
+and advances `pos`; it never copies to or from the host.  On a card the
+window is a CUDA graph of that body, captured once and replayed; the
+draws are drawn on the host step by step in the order single steps draw
+them, so a window and w single steps take the same numbers from one
+generator and, under --deterministic, give the same bits.
+
 Layout: batch dicts are NHWC as in the JAX package; the step works on NCHW
 from the encoder on.  The host loaders' fundus batches arrive as uint8
 (img, donor, mask) and are promoted to float32 on the device, which is
@@ -78,6 +91,7 @@ uncast float32 image (`ramdsir_tpu/train/steps.py:114`, `:242`, `:330`).
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
@@ -148,6 +162,160 @@ def sample_step_draws(
     return {k: v.to(device) for k, v in draws.items()}
 
 
+GRAPH_WARMUP_STEPS = 2  # eager steps of a run before its capture
+
+
+class StepInputs:
+    """A window's per-step inputs in static buffers on the step's device,
+    `w` rows each: the index rows (device data), the draws and the lr,
+    with `pos`, a 0-d long counter of the step the window is at, and
+    `table`, the (w, K) float32 metrics of its steps (the sorted names).
+
+    The host fills them once a window (`load`, through pinned memory on a
+    card, with no synchronise); a step reads its row through `pos` and
+    writes its metrics' row (`row`, `record`) with no host value, so a
+    captured step reads the rows of later windows as well."""
+
+    def __init__(self, w: int, specs: Mapping[str, tuple], device: torch.device):
+        self.w = w
+        self.rows = {k: torch.zeros((w,) + tuple(tail), dtype=dt, device=device) for k, (tail, dt) in specs.items()}
+        self.pos = torch.zeros((), dtype=torch.long, device=device)
+        self._index = torch.arange(w, device=device).view(w, 1)
+        self.names: Optional[List[str]] = None
+        self.table: Optional[torch.Tensor] = None
+
+    def load(self, values: Mapping[str, object]) -> None:
+        """values[name] (n, ...), n <= w, numpy, a list or a tensor on any
+        device, into the first n rows of each buffer; `pos` to 0."""
+        for k, dst in self.rows.items():
+            src = values[k]
+            src = torch.from_numpy(np.ascontiguousarray(src)) if isinstance(src, np.ndarray) else torch.as_tensor(src)
+            if src.shape[0] > self.w:
+                raise ValueError(f"{src.shape[0]} rows of {k} for a window of {self.w}")
+            if dst.is_cuda and src.device.type == "cpu":
+                src = src.to(dst.dtype).pin_memory()
+            dst[: src.shape[0]].copy_(src, non_blocking=True)
+        self.pos.zero_()
+
+    def row(self, name: str) -> torch.Tensor:
+        return self.rows[name].index_select(0, self.pos.view(1))[0]
+
+    def record(self, metrics: Mapping[str, torch.Tensor]) -> None:
+        """The step's metrics into row `pos` of the table; `pos` on by one."""
+        if self.table is None:
+            self.names = sorted(metrics)
+            self.table = torch.zeros((self.w, len(self.names)), dtype=torch.float32, device=self.pos.device)
+        values = torch.stack([metrics[k].float() for k in self.names]).view(1, -1)
+        self.table.copy_(torch.where(self._index == self.pos, values, self.table))
+        self.pos.add_(1)
+
+    def metrics(self, n: int) -> Dict[str, torch.Tensor]:
+        """The first n steps' metrics, (n,) each (copies)."""
+        return {k: self.table[:n, j].clone() for j, k in enumerate(self.names)}
+
+
+class ScanTrainSteps:
+    """`scan_train_steps(state, plan, generator=None, draws=None, viz=False,
+    timer=None) -> (metrics, viz)`: the steps of one window, the counterpart
+    of the JAX package's `scan_train_steps` (`ramdsir_tpu/train/steps.py:469-502`).
+
+    plan: {img_idx, donor_idx} (w, B) index rows, w <= the buffers' rows;
+    draws (w, B, ...) as `sample_step_draws` gives them, or drawn here from
+    `generator` step by step.  The host uploads the rows, the draws and the
+    w poly-LR values once (`StepInputs.load`) and queues the steps; it reads
+    nothing back.  Returns the metrics as (w,) tensors on the step's device
+    and the viz slices of the window's last step (with viz=True), and
+    advances `state` (modules, statistics, Adam, state.step) by w steps.
+    `timer` (a `utils.profiler.StepTimer`) is ticked as the steps are queued.
+
+    On a CUDA device outside a process group, with buffers of more than one
+    row, the steps run as a CUDA graph: the first GRAPH_WARMUP_STEPS steps
+    of the run are eager, on a side stream (they build the kernels and fill
+    the caches and Adam's moments), then one step is captured into a
+    `torch.cuda.CUDAGraph` on that stream and every later step is a
+    replay.  A capture that fails raises.  Elsewhere (the CPU, a process
+    group, one-row buffers) each step runs eagerly.  A kernel's wrapper
+    counts its launch once at the capture and not at a replay; the kernel's
+    own counter on the device (`ops.ram_mix.device_launches`) counts every
+    run.  `replays`, `capture_seconds` and `graph_pool_bytes` (device memory the
+    capture reserved) describe the graph."""
+
+    def __init__(self, body, new_inputs, window_draws, batch: int, lr_at, window: Optional[int], viz_in_graph: bool):
+        self._body, self._new_inputs, self._window_draws = body, new_inputs, window_draws
+        self._batch, self._lr_at, self.window = batch, lr_at, window
+        self.viz_in_graph = viz_in_graph
+        self.inputs: Optional[StepInputs] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.replays = 0
+        self.capture_seconds: Optional[float] = None
+        self.graph_pool_bytes: Optional[int] = None
+        self._graph_viz: Dict[str, torch.Tensor] = {}
+
+    def graphed(self) -> bool:
+        """Whether the steps run as a graph (known after the first call)."""
+        return (self.inputs is not None and self.inputs.pos.is_cuda and self.inputs.w > 1
+                and not distributed.in_group())
+
+    def __call__(self, state: TrainState, plan: Mapping, generator: Optional[torch.Generator] = None,
+                 draws: Optional[Mapping] = None, viz: bool = False, timer=None):
+        w = len(plan["img_idx"])
+        device = next(state.models["encoder"].parameters()).device
+        if self.inputs is None:
+            self.inputs = self._new_inputs(max(w, self.window or 0), device)
+        inputs = self.inputs
+        values: Dict[str, object] = dict(self._window_draws(generator, draws, w))
+        values.update({k: np.asarray(plan[k]) for k in ("img_idx", "donor_idx")})
+        values["lr"] = [self._lr_at(state.step + i) for i in range(w)]
+        inputs.load(values)
+        tick = (lambda n: timer.tick(self._batch * n, n)) if timer is not None else (lambda n: None)
+        out_viz: Dict[str, torch.Tensor] = {}
+        done = 0
+        if self.graphed() and self.graph is None:
+            if viz and not self.viz_in_graph:
+                raise ValueError("viz from a graph captured without it (log_images_every 0)")
+            done = min(w, GRAPH_WARMUP_STEPS)
+            compute, side = torch.cuda.current_stream(device), torch.cuda.Stream(device)
+            side.wait_stream(compute)
+            with torch.cuda.stream(side):
+                for i in range(done):
+                    _, out_viz = self._body(state, inputs, None, viz and i == w - 1)
+                    tick(1)
+            compute.wait_stream(side)
+            for t in out_viz.values():  # made on the side stream, read on the compute stream
+                t.record_stream(compute)
+            if done < w:
+                with timer.paused() if timer is not None else contextlib.nullcontext():
+                    self._capture(state, inputs, side, device)
+        if self.graph is not None:
+            r = w - done
+            for _ in range(r):
+                self.graph.replay()
+            self.replays += r
+            tick(r)
+            if viz:
+                out_viz = {k: t.clone() for k, t in self._graph_viz.items()}
+        else:
+            for i in range(done, w):
+                _, out_viz = self._body(state, inputs, None, viz and i == w - 1)
+                tick(1)
+        state.step += w
+        return inputs.metrics(w), (out_viz if viz else {})
+
+    def _capture(self, state: TrainState, inputs: StepInputs, stream: torch.cuda.Stream, device) -> None:
+        """Capture one step (the next: row `pos`) into the graph.  The
+        capture runs nothing, so the state and `pos` stay as they are."""
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            _, viz = self._body(state, inputs, None, self.viz_in_graph)
+        self.capture_seconds = time.perf_counter() - t0
+        self.graph_pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        self.graph, self._graph_viz = graph, viz
+
+
 def poly_lr(base_lr: float, step: int, total_iters: int) -> float:
     """The reference sets the schedule after optimizer.step() from the
     pre-increment counter, so step i runs at lr(max(i-1, 0))."""
@@ -161,8 +329,13 @@ def make_train_step(
     device_data: Optional[Mapping[str, torch.Tensor]] = None,
     debug_grads: bool = False,
     pad_to_multiple: Optional[int] = None,
+    scan: bool = False,
+    window: Optional[int] = None,
 ) -> Callable:
-    """Build `train_step(state, batch, generator=None, draws=None, viz=False) -> metrics`.
+    """Build `train_step(state, batch, generator=None, draws=None, viz=False) -> metrics`,
+    or with scan=True the window step `ScanTrainSteps` (the JAX package's
+    `scan_train_steps`; the module docstring), whose buffers hold `window`
+    steps (None: the first window's length).
 
     batch (NHWC), fundus: img (B,H,W,3) [0,255], mask (B,H,W,2), float or
     uint8, and either donor_amp (B,2b+1,b+1,3) banded donor amplitudes or
@@ -180,7 +353,8 @@ def make_train_step(
     The step updates `state` in place (modules, BN running statistics, Adam,
     state.step) and returns its metrics as 0-d tensors under the JAX
     package's keys; debug_grads=True adds the raw gradients under "_grads"
-    (under a group, the global batch's, after the all-reduce).
+    (under a group, the global batch's, after the all-reduce).  The
+    metrics' `lr` is the step's float32 lr on the step's device.
     """
     cfg = cfg.resolve()
     check_supported(cfg)
@@ -223,8 +397,8 @@ def make_train_step(
         first: under a group every rank fills the rows it holds into zeros
         and one all-reduce assembles them (gloo's CUDA tensors offer no
         all_gather)."""
-        if not grouped:
-            return t[wanted]
+        if not grouped:  # row by row: no index tensor to copy to the device (a capture refuses one)
+            return torch.stack([t[i] for i in wanted])
         out = t.new_zeros((len(wanted),) + tuple(t.shape[1:]))
         for i, g in enumerate(wanted):
             if rows.start <= g < rows.start + n_local:
@@ -347,22 +521,39 @@ def make_train_step(
                 viz["image_freq"] = pick(img_freq)
         return loss, metrics, {k: v.detach() for k, v in viz.items()}
 
-    def train_step(
-        state: TrainState,
-        batch: Mapping,
-        generator: Optional[torch.Generator] = None,
-        draws: Optional[Mapping[str, torch.Tensor]] = None,
-        viz: bool = False,
-    ) -> Dict:
-        device = next(state.models["encoder"].parameters()).device
+    crop = device_data is not None and is_fundus
+    draw_keys = ("crop_apply", "crop_u", "crop_off", "ratio") if crop else ("ratio",)
+    specs = {"ratio": ((b_real,), torch.float32), "lr": ((), torch.float32)}
+    if crop:
+        specs.update(crop_apply=((b_real,), torch.bool), crop_u=((b_real, 2), torch.float32),
+                     crop_off=((b_real, 2), torch.float32))
+    if device_data is not None:
+        specs.update(img_idx=((b_real,), torch.long), donor_idx=((b_real,), torch.long))
+
+    def window_draws(generator, draws, n: int) -> Dict[str, torch.Tensor]:
+        """n steps' draws as (n, B, ...): `draws` as given (already stacked),
+        or from `generator`, step by step, in the order n single steps
+        draw them."""
         if draws is None:
             if generator is None:
-                raise ValueError("train_step needs a generator or precomputed draws")
-            draws = sample_step_draws(generator, b_real, device, crop=device_data is not None and is_fundus)
+                raise ValueError("the train step needs a generator or precomputed draws")
+            steps = [sample_step_draws(generator, b_real, torch.device("cpu"), crop=crop) for _ in range(n)]
+            return {k: torch.stack([d[k] for d in steps]) for k in draw_keys}
+        missing = [k for k in draw_keys if k not in draws]
+        if missing:
+            raise ValueError(f"the step's draws lack {missing}")
+        return {k: torch.as_tensor(draws[k])[:, :b_real] for k in draw_keys}
+
+    def body(state: TrainState, inputs: StepInputs, batch: Optional[Mapping] = None, want_viz: bool = False):
+        """One step from row `inputs.pos` of the window's buffers (a host
+        batch: `batch`, on the device): (metrics, viz slices).  It reads no
+        value from the device to the host and copies nothing from the host,
+        so it runs the same kernels eagerly and inside a CUDA graph."""
+        draws = {k: inputs.row(k) for k in draw_keys}
         if b_pad != b_real or grouped:  # this rank's rows of the global draws
-            draws = {k: pad_rows(v[:b_real], b_pad)[rows] for k, v in draws.items()}
+            draws = {k: pad_rows(v, b_pad)[rows] for k, v in draws.items()}
         if device_data is not None:
-            idx = {k: torch.as_tensor(np.asarray(v), dtype=torch.long).to(device) for k, v in batch.items()}
+            idx = {k: inputs.row(k) for k in ("img_idx", "donor_idx")}
             if b_pad != b_real or grouped:  # padded with index 0, masked by n_valid
                 idx = {k: pad_rows(v, b_pad)[rows] for k, v in idx.items()}
             if is_fundus:
@@ -377,25 +568,66 @@ def make_train_step(
             m.train()
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
-        loss, metrics, viz_slices = loss_fn(state, batch, draws, viz)
+        loss, metrics, viz_slices = loss_fn(state, batch, draws, want_viz)
         loss.backward()
         all_reduce_grads(state.models)  # the mean over the ranks; nothing without a group
+        grads = None
         if debug_grads:
-            metrics["_grads"] = {
+            grads = {
                 name: {k: p.grad.detach().clone() for k, p in m.named_parameters()}
                 for name, m in state.models.items()
             }
-        lr = poly_lr(base_lr, state.step, total_iters)
+        lr = inputs.row("lr")
         for name, group in zip(state.models, opt.param_groups):
-            group["lr"] = lr * group_factor.get(name, 1.0)
+            factor = group_factor.get(name, 1.0)
+            if torch.is_tensor(group["lr"]):  # a capturable Adam's, on the card
+                group["lr"].copy_(lr * factor)
+            else:
+                group["lr"] = float(lr) * factor
         opt.step()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["lr"] = lr
+        inputs.record(metrics)
+        if grads is not None:
+            metrics["_grads"] = grads
+        return metrics, viz_slices
+
+    def new_inputs(w: int, device: torch.device) -> StepInputs:
+        return StepInputs(w, specs, device)
+
+    one_step: Dict[torch.device, StepInputs] = {}
+
+    def train_step(
+        state: TrainState,
+        batch: Mapping,
+        generator: Optional[torch.Generator] = None,
+        draws: Optional[Mapping[str, torch.Tensor]] = None,
+        viz: bool = False,
+    ) -> Dict:
+        device = next(state.models["encoder"].parameters()).device
+        if device not in one_step:
+            one_step[device] = new_inputs(1, device)
+        inputs = one_step[device]
+        one = None if draws is None else {k: torch.as_tensor(v)[None] for k, v in draws.items()}
+        values: Dict[str, object] = window_draws(generator, one, 1)
+        values["lr"] = [poly_lr(base_lr, state.step, total_iters)]
+        if device_data is not None:
+            values.update({k: torch.as_tensor(batch[k])[None] for k in ("img_idx", "donor_idx")})
+            batch = None
+        inputs.load(values)
+        metrics, viz_slices = body(state, inputs, batch, viz)
         state.step += 1
-        metrics = {k: (v if k == "_grads" else v.detach()) for k, v in metrics.items()}
-        metrics["lr"] = torch.tensor(lr)
         if viz:
             metrics["_viz"] = viz_slices
         return metrics
 
+    if scan:
+        if device_data is None:
+            raise ValueError("scan=True requires the device-resident dataset")
+        return ScanTrainSteps(
+            body, new_inputs, window_draws, b_real, lambda step: poly_lr(base_lr, step, total_iters),
+            window, viz_in_graph=bool(cfg.log_images_every),
+        )
     return train_step
 
 

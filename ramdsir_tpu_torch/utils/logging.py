@@ -1,5 +1,5 @@
-"""Scalar metrics as JSON lines and the training image grids as PNGs
-(PyTorch port of `ramdsir_tpu/utils/logging.py:22-89` and `:173-257`).
+"""Scalar metrics as JSON lines, the training steps' metrics ring and the
+training image grids as PNGs (PyTorch port of `ramdsir_tpu/utils/logging.py`).
 
 Tags are the reference's SummaryWriter tags (code/train.py:298-329), so
 curves compare with the JAX package's `metrics.jsonl`.  The card has no
@@ -87,6 +87,71 @@ class MetricsWriter:
 
     def close(self) -> None:
         self._jsonl.close()
+
+
+class DeviceMetricsRing:
+    """The training steps' scalar metrics, held on their device until
+    `flush` (the JAX package's `DeviceMetricsRing`,
+    `ramdsir_tpu/utils/logging.py:92-170`), so that no step waits for the
+    card.
+
+    `append(start_step, metrics)` takes a dict of 0-d tensors (one step) or
+    of (W,) tensors (a window of steps start_step..start_step+W-1) and
+    copies them, as float32 rows of the sorted names, into one (cap, K)
+    float32 buffer on their device: a copy queued on the current stream, no
+    synchronise.  `flush()` reads the rows back in one device-to-host copy
+    and writes those whose step is a multiple of `log_interval`: the names
+    under `prefix`, those in `no_prefix` (the reference's bare `lr`) in a
+    row of their own.  A window that would overfill the buffer flushes it
+    first; the training loop flushes again at each eval and at the end.
+    Values are float32, as in the JAX ring: a logged lr is the float32
+    value."""
+
+    def __init__(
+        self,
+        writer: MetricsWriter,
+        cap: int = 2048,
+        prefix: str = "loss/",
+        log_interval: int = 1,
+        no_prefix: Tuple[str, ...] = ("lr",),
+    ):
+        self.writer = writer
+        self.cap = cap
+        self.prefix = prefix
+        self.no_prefix = frozenset(no_prefix)
+        self.log_interval = max(1, log_interval)
+        self.names: Optional[List[str]] = None
+        self.buf: Optional[torch.Tensor] = None
+        self.steps: List[int] = []  # row i of buf belongs to step steps[i]
+
+    def append(self, start_step: int, metrics: Dict[str, torch.Tensor]) -> None:
+        if self.names is None:
+            self.names = sorted(metrics)
+            device = next(iter(metrics.values())).device
+            self.buf = torch.zeros((self.cap, len(self.names)), dtype=torch.float32, device=device)
+        table = torch.stack([torch.atleast_1d(metrics[k]).float() for k in self.names], dim=-1)
+        w = table.shape[0]
+        if w > self.cap:
+            raise ValueError(f"a window of {w} steps does not fit a ring of {self.cap}")
+        if len(self.steps) + w > self.cap:
+            self.flush()
+        n = len(self.steps)
+        self.buf[n : n + w].copy_(table)
+        self.steps.extend(range(start_step, start_step + w))
+
+    def flush(self) -> None:
+        """One device-to-host copy; writes the rows whose step hits log_interval."""
+        if not self.steps:
+            return
+        table = self.buf[: len(self.steps)].cpu().numpy()
+        for s, row in zip(self.steps, table):
+            if s % self.log_interval == 0:
+                vals = dict(zip(self.names, row))
+                bare = {k: vals.pop(k) for k in list(vals) if k in self.no_prefix}
+                self.writer.add_scalars(vals, s, prefix=self.prefix)
+                if bare:
+                    self.writer.add_scalars(bare, s)
+        self.steps.clear()
 
 
 class DeviceVizRing:

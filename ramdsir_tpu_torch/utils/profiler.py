@@ -13,78 +13,123 @@ import torch
 
 
 class StepTimer:
-    """Wall-clock step timer with the first `warmup` steps excluded.
+    """Step timer with the first `warmup` steps excluded.
 
-    `tick()` after each step; on a CUDA device `mark()` synchronises the
-    device first, so the window ends at completed work, not at the last
-    enqueue.  `step_seconds` holds the time between consecutive ticks after
-    warm-up.
+    `tick(items, steps)` after `steps` steps have been queued: one step, or
+    a window of them.  On the CPU a tick reads the host clock.  On a CUDA
+    device it records a CUDA event on the current stream and adds no
+    synchronise: the time between two ticks' events is the device-paced
+    time of the steps in between (idle gaps while the host queues them
+    included), read when the events are done, at `mark()` (after a
+    synchronise, at an eval and at the end) or when a property is read.
+    `step_seconds` holds each timed step's share of its tick's interval;
+    `timed_steps` counts them without reading an event.  Time inside
+    `paused()` (eval, checkpoints, a graph capture) counts nowhere: on a
+    card the next interval starts at an event recorded after it.
     """
 
     def __init__(self, warmup: int = 2, device: Union[str, torch.device] = "cpu"):
         self.warmup = warmup
         self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
         self.steps = 0
         self.items = 0
-        self.step_seconds: List[float] = []
+        self.timed_steps = 0
+        self._seconds: List[float] = []
+        self._pending: List[tuple] = []  # (start event, end event, steps) not read yet
         self._t0: Optional[float] = None
-        self._last: Optional[float] = None
+        self._last = None  # host clock (CPU) or the last event (CUDA)
+        self._elapsed = 0.0  # CUDA: seconds of the read intervals
         self._dirty = False  # ticks since the last mark
 
-    def tick(self, batch_items: int) -> None:
-        self.steps += 1
-        now = time.perf_counter()
-        if self.steps == self.warmup:
-            self._t0 = now
+    def _now(self):
+        if not self.cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    def tick(self, batch_items: int, steps: int = 1) -> None:
+        before, self.steps = self.steps, self.steps + steps
+        now = self._now()
+        if before < self.warmup <= self.steps:  # the window opens after this tick's steps
+            self._t0 = now if not self.cuda else 0.0
             self.items = 0
-        elif self.steps > self.warmup:
+        elif before >= self.warmup:
             self.items += batch_items
-            self.step_seconds.append(now - self._last)
+            self.timed_steps += steps
+            if self.cuda:
+                self._pending.append((self._last, now, steps))
+            else:
+                self._seconds.extend([(now - self._last) / steps] * steps)
         self._last = now
         self._dirty = True
 
+    def _read(self) -> None:
+        """The pending CUDA intervals, waiting for their events."""
+        for start, end, steps in self._pending:
+            end.synchronize()
+            seconds = start.elapsed_time(end) / 1e3
+            self._elapsed += seconds
+            self._seconds.extend([seconds / steps] * steps)
+        self._pending.clear()
+
     def mark(self) -> None:
-        """Extend the window to now (after a device synchronise) without
-        adding items.  A mark with no tick since the previous one is a
-        no-op: whatever ran in between (eval, checkpoints) is not step work."""
-        if self.device.type == "cuda":
+        """Close the window at completed work: on a CUDA device synchronise
+        and read the intervals; on the CPU extend it to now without adding
+        items.  A mark with no tick since the previous one is a no-op:
+        whatever ran in between (eval, checkpoints) is not step work."""
+        if self.cuda:
             torch.cuda.synchronize(self.device)
-        if self._t0 and self._dirty:
+            self._read()
+        elif self._t0 and self._dirty:
             self._last = time.perf_counter()
         self._dirty = False
 
     @contextlib.contextmanager
     def paused(self) -> Iterator[None]:
-        """Time spent inside (eval, checkpoints) counts in neither the
-        throughput window nor the next step's time."""
+        """Time spent inside counts in neither the throughput window nor
+        the next step's time."""
         t = time.perf_counter()
         try:
             yield
         finally:
-            gap = time.perf_counter() - t
-            if self._t0 is not None:
-                self._t0 += gap
-            if self._last is not None:
-                self._last += gap
+            if self.cuda:
+                if self._last is not None:
+                    self._last = self._now()
+            else:
+                gap = time.perf_counter() - t
+                if self._t0 is not None:
+                    self._t0 += gap
+                if self._last is not None:
+                    self._last += gap
+
+    @property
+    def step_seconds(self) -> List[float]:
+        self._read()
+        return self._seconds
 
     @property
     def elapsed(self) -> float:
-        if not self._t0:
+        if self._t0 is None:
             return 0.0
+        if self.cuda:
+            self._read()
+            return self._elapsed
         return (self._last or self._t0) - self._t0
 
     @property
     def items_per_sec(self) -> float:
-        return self.items / self.elapsed if self._t0 and self.elapsed > 0 else 0.0
+        return self.items / self.elapsed if self.elapsed > 0 else 0.0
 
     @property
     def steps_per_sec(self) -> float:
-        n = self.steps - self.warmup
-        return n / self.elapsed if self._t0 and self.elapsed > 0 else 0.0
+        return self.timed_steps / self.elapsed if self.elapsed > 0 else 0.0
 
     @property
     def median_step_ms(self) -> float:
-        return 1e3 * statistics.median(self.step_seconds) if self.step_seconds else 0.0
+        seconds = self.step_seconds
+        return 1e3 * statistics.median(seconds) if seconds else 0.0
 
 
 class TraceWindow:

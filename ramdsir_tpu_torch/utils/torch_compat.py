@@ -14,7 +14,9 @@ Both ways: `jax_params_to_torch` / `load_jax_params` read the JAX trees,
 whose tree is its own: `Discriminator`'s InstanceNorms have no entry), and
 `torch_adam_to_jax` / `jax_adam_to_torch` carry Adam's moments as optax's
 `ScaleByAdamState` ({count, mu, nu}, the moments in the params tree's
-layout; count is torch's per-parameter `step`).
+layout; count is torch's per-parameter `step`: a CPU tensor in the plain
+Adam, a float32 tensor on the parameters' card in the capturable one that
+`train.state.init_state` builds there).
 """
 from __future__ import annotations
 
@@ -167,7 +169,8 @@ def torch_to_jax_params(models: Union[nn.Module, Mapping[str, nn.Module]]) -> Tu
 def torch_adam_to_jax(models: Mapping[str, nn.Module], optimizer: torch.optim.Adam) -> Dict[str, Any]:
     """The Adam state of `models`' parameters as optax's {count, mu, nu};
     a parameter with no state yet (a fresh optimizer) gives zero moments,
-    and count is 0 when none has any."""
+    and count is 0 when none has any.  The step count is read wherever it
+    lies (on the card for a capturable Adam)."""
     count = 0
     mu, nu = {}, {}
     for name, module in models.items():
@@ -175,7 +178,7 @@ def torch_adam_to_jax(models: Mapping[str, nn.Module], optimizer: torch.optim.Ad
         for key, p in module.named_parameters():
             st = optimizer.state.get(p)
             if st:
-                count = int(st["step"])
+                count = int(st["step"].item())
             for field, values in moments.items():
                 values[key] = _numpy(st[field]) if st else np.zeros(tuple(p.shape), np.float32)
         mu[name] = _module_to_flax(module, moments["exp_avg"])[0]
@@ -186,7 +189,10 @@ def torch_adam_to_jax(models: Mapping[str, nn.Module], optimizer: torch.optim.Ad
 def jax_adam_to_torch(models: Mapping[str, nn.Module], optimizer: torch.optim.Adam, opt_state: Mapping) -> None:
     """Load optax's {count, mu, nu} into `optimizer`, which holds one param
     group a module in `models`' order (`train.state.init_state`).  count 0
-    leaves the optimizer's state empty, as a fresh one is."""
+    leaves the optimizer's state empty, as a fresh one is.  The step count
+    goes where the optimizer keeps it: a float32 tensor on the parameter's
+    device for a capturable Adam (torch's `load_state_dict` puts it there),
+    a CPU tensor otherwise."""
     groups = optimizer.state_dict()["param_groups"]
     if len(groups) != len(models):
         raise ValueError(f"{len(groups)} param groups for {len(models)} modules")

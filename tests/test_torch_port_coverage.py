@@ -20,8 +20,11 @@ NOT_BY_NAME = {
        for n in ("pack", "unpack", "pool2x2", "upsample2x_into", "block_kernel", "repeat4", "down_kernel",
                  "packconv2", "S2DConv", "S2DConvDown", "S2DUpConv")},
     "utils.cache.enable_persistent_cache": (DESIGN, "JAX's compile cache; the port's builds are keyed on their source's hash"),
-    "utils.logging.DeviceMetricsRing": (DESIGN, "a TPU-relay readback ring; the port's loop reads the scalars with one "
-                                                "sync a log interval"),
+    # utils.logging.DeviceMetricsRing has its counterpart by name, so no row.  The scan windows'
+    # functions are nested in the JAX package (train/steps.py `scan_train_steps` in make_train_step,
+    # train/loop.py `run_scan_segment` in fit), so the walk does not see them; their counterparts are
+    # train.steps:ScanTrainSteps (make_train_step(..., scan=True)) and the `run_scan_segment` in
+    # train.loop:fit, with train.loop:scan_window_size for the choice of W.
     # the device mesh: the port's data parallelism is parallel/mesh.rank_rows and all_reduce_*
     **{f"parallel.mesh.{n}": (DESIGN, "jax.sharding mesh helper; the port shards with parallel.mesh.rank_rows and "
                                       "reduces with all_reduce_sum / all_reduce_grads")

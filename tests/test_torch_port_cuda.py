@@ -1,6 +1,7 @@
 """K1, K2 and K3 on the card against their plain versions, the eval path on
 the card against the CPU, a bfloat16 step through K1, a `.ckpt` round trip
-of a card state, deterministic steps that repeat bit for bit, the GN / IN
+of a card state (capturable Adam), deterministic steps that repeat bit for
+bit, two graph windows bit-equal to single steps, the GN / IN
 forwards against the CPU, --remat bit-equal to no remat, the host input
 path on the card: the host-to-device stream, the viz ring, `fit` on the
 host loaders, and data-parallel steps on the card: one NCCL rank, and two
@@ -94,6 +95,35 @@ def test_kernel_matches_plain(gen, h, w, mode, variant):
     assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
     if variant == "tiny":
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["full", "band", "delta"])
+def test_kernel_counts_its_runs_on_the_card_through_graph_replays(gen, mode):
+    """K1's counter on the card moves by one at each eager launch and at
+    each replay of a graph that holds one launch; its wrapper's count moves
+    at the eager launch and at the capture only."""
+    z, donor, ratio = _inputs(gen, 2, 64, 64)
+    amp = (tram.amplitude_spectrum(donor) if mode == "full" else tram.banded_amplitude_spectrum(donor)).permute(0, 3, 1, 2)
+    b = tram.band_halfwidth(64, 64)
+    if mode == "delta":
+        z = z[:, :, torch.cat([torch.arange(b + 1), torch.arange(64 - b, 64)]).cuda(), : b + 1]
+    path = {"full": "full_vec", "band": "strided", "delta": "delta_flat"}[mode]
+    run = lambda: _mix(ram_mix.mix_spectrum, z, amp, ratio, b, mode == "full", mode == "delta")
+    run()  # the library, the counter and the kernel's first launch, before the capture
+    torch.cuda.synchronize()
+    ram_mix.zero_device_launches()
+    host = ram_mix.launches_by_path[path]
+    run()
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert ram_mix.device_launches() == {p: 4 if p == path else 0 for p in ram_mix.PATHS}
+    assert ram_mix.launches_by_path[path] == host + 2
 
 
 def test_ram_functions_run_through_the_kernel(gen):
@@ -279,6 +309,109 @@ def test_ckpt_round_trip_of_card_state_is_bit_equal(gen, tmp_path):
     for p, q in zip(pa, pb):
         sa, sb = a.optimizer.state[p], b.optimizer.state[q]
         assert sa.keys() == sb.keys() and all(torch.equal(sa[k].cpu(), sb[k].cpu()) for k in sa)
+
+
+def test_capturable_adam_state_through_ckpt(gen, tmp_path):
+    """On the card Adam is capturable: each group's lr a 0-d float32 tensor
+    on the card, each step count a float32 tensor there.  The .ckpt tree
+    reads the count (1 after a step), a loaded state keeps it on the card,
+    and one more step from the original and from the loaded state is bit
+    for bit the same under deterministic_mode."""
+    from ramdsir_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from ramdsir_tpu_torch.train.loop import deterministic_mode
+    from ramdsir_tpu_torch.train.state import init_state, state_to_tree
+
+    cfg, a, _, _ = _card_step("float32")
+    assert a.optimizer.defaults["capturable"]
+    assert all(torch.is_tensor(g["lr"]) and g["lr"].is_cuda and g["lr"].dtype == torch.float32
+               for g in a.optimizer.param_groups)
+    assert int(state_to_tree(a)["opt_state"]["count"]) == 1
+    save_checkpoint(str(tmp_path / "a.ckpt"), a)
+    b = init_state(cfg, torch.Generator().manual_seed(9), "cuda")
+    load_checkpoint(str(tmp_path / "a.ckpt"), b)
+    steps = [s["step"] for s in b.optimizer.state.values()]
+    assert steps and all(t.is_cuda and t.dtype == torch.float32 and float(t) == 1.0 for t in steps)
+    out = []
+    for state in (a, b):
+        from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
+        from ramdsir_tpu_torch.data.synthetic import fundus_arrays
+        from ramdsir_tpu_torch.train.steps import make_train_step
+
+        pipe = DeviceFundusPipeline.from_arrays(
+            fundus_arrays(per_domain_train=8, size=64), cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx,
+            is_out_domain=True, seed=0, precompute_donor_amp=cfg.ram_precompute_donor_amp, device="cuda")
+        step = make_train_step(cfg, total_iters=10, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data)
+        with deterministic_mode(True):
+            m = step(state, next(iter(pipe)), torch.Generator().manual_seed(3))
+        out.append(({k: v.clone() for k, v in m.items()}, {f"{n}.{k}": v.clone() for n, mod in state.models.items()
+                                                           for k, v in mod.state_dict().items()}))
+    (ma, sa), (mb, sb) = out
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)
+    assert [k for k in sa if not torch.equal(sa[k], sb[k])] == []
+
+
+def test_graph_windows_match_single_steps_on_card(gen):
+    """Two windows of 3 fundus steps at 64^2 (the first: 2 eager steps, the
+    capture, a replay; the second: 3 replays) against 6 single steps from
+    the same seed, under deterministic_mode: parameters, BN statistics,
+    Adam moments and every step's metrics bit-equal; K1 run 6 times (once
+    a step) and K2 and K3 8 times a step both ways, as the kernels count
+    themselves on the card; their wrappers count the graph's 2 eager steps
+    and its capture only; 4 replays."""
+    from ramdsir_tpu_torch.config import TrainConfig
+    from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
+    from ramdsir_tpu_torch.data.synthetic import fundus_arrays
+    from ramdsir_tpu_torch.ops import upsample
+    from ramdsir_tpu_torch.train.loop import deterministic_mode
+    from ramdsir_tpu_torch.train.state import init_state
+    from ramdsir_tpu_torch.train.steps import make_train_step
+
+    cfg = TrainConfig(dataset="fundus", domain_idxs=(1, 2, 3), test_domain_idx=0, ram=True, rec=True,
+                      is_out_domain=True, consistency=True, consistency_type="kd", image_size=64,
+                      device="cuda").resolve()
+    runs = {}
+    for name in ("single", "graph"):
+        pipe = DeviceFundusPipeline.from_arrays(
+            fundus_arrays(per_domain_train=8, size=64), cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx,
+            is_out_domain=True, seed=0, precompute_donor_amp=cfg.ram_precompute_donor_amp, device="cuda")
+        plans = [pipe.epoch_plan() for _ in range(6)]  # batch 16 = 3+6+7 of 8 images a domain: 1 step an epoch
+        plan = {k: np.concatenate([p[k] for p in plans])[:6] for k in plans[0]}
+        state = init_state(cfg, torch.Generator().manual_seed(0), "cuda")
+        g = torch.Generator().manual_seed(1)
+        torch.cuda.synchronize()
+        ram_mix.zero_device_launches()
+        upsample.zero_device_launches()
+        host = (ram_mix.launches, upsample.launches, upsample.forward_launches)
+        with deterministic_mode(True):
+            if name == "single":
+                step = make_train_step(cfg, 20, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data)
+                ms = [step(state, {k: v[i] for k, v in plan.items()}, g) for i in range(6)]
+                metrics = {k: torch.stack([m[k].float() for m in ms]) for k in ms[0]}
+                replays = 0
+            else:
+                window = make_train_step(cfg, 20, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data,
+                                         scan=True, window=3)
+                tables = [window(state, {k: v[i:i + 3] for k, v in plan.items()}, g)[0] for i in (0, 3)]
+                metrics = {k: torch.cat([t[k] for t in tables]) for k in tables[0]}
+                assert window.graphed()
+                replays = window.replays
+        torch.cuda.synchronize()
+        up = upsample.device_launches()
+        launched = (sum(ram_mix.device_launches().values()), up["backward"], up["forward"])
+        host = tuple(n - c for n, c in zip((ram_mix.launches, upsample.launches, upsample.forward_launches), host))
+        runs[name] = (state, metrics, launched, host, replays)
+    (a, ma, la, ha, _), (b, mb, lb, hb, replays) = runs["single"], runs["graph"]
+    assert la == lb == (6, 48, 48) and replays == 4 and a.step == b.step == 6
+    assert ha == (6, 48, 48) and hb == (3, 24, 24)
+    assert ma.keys() == mb.keys() and all(torch.equal(ma[k], mb[k]) for k in ma)
+    for name, m in a.models.items():
+        for k, v in m.state_dict().items():
+            assert torch.equal(v, b.models[name].state_dict()[k]), f"{name}.{k}"
+    pa = [p for m in a.models.values() for p in m.parameters()]
+    pb = [p for m in b.models.values() for p in m.parameters()]
+    for p, q in zip(pa, pb):
+        sa, sb = a.optimizer.state[p], b.optimizer.state[q]
+        assert sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
 
 
 # --- K2 and K3, the deterministic upsample, and a deterministic step ---------------

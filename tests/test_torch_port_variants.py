@@ -591,9 +591,11 @@ def test_groupnorm_checkpoints_interchange(gn_states, tmp_path):
 
 
 def test_trace_dir_and_scan_window_leave_the_run_unchanged(tmp_path):
-    """fit for 4 steps as it is, with --trace_dir (the window opens at step 2
-    and closes at the run's end) and with --scan_window 4: the final states
-    and the logged losses bit-equal; the trace is a Chrome trace of the
+    """fit for 4 steps with --scan_window 1 (a step at a time, the per-step
+    reference), as it is (the default window: all 4 steps), with
+    --trace_dir (W = 1; the window opens at step 2 and closes at the run's
+    end) and with --scan_window 4: the final states and the logged losses
+    bit-equal to the per-step run's; the trace is a Chrome trace of the
     steps' ops."""
     import json
 
@@ -604,7 +606,8 @@ def test_trace_dir_and_scan_window_leave_the_run_unchanged(tmp_path):
     arrays = fundus_arrays(per_domain_train=8, size=32)
     testset = fundus_test_samples(num=2, size=40, image_size=32, seed=1)
     runs = {}
-    for name, extra in (("plain", {}), ("trace", dict(trace_dir=str(tmp_path / "trace"))), ("scan", dict(scan_window=4))):
+    for name, extra in (("per_step", dict(scan_window=1)), ("plain", {}), ("trace", dict(trace_dir=str(tmp_path / "trace"))),
+                        ("scan", dict(scan_window=4))):
         cfg = TrainConfig(dataset="fundus", domain_idxs=(1, 2, 3), test_domain_idx=0, image_size=32, epochs=1,
                           test_batch_size=2, save_path=str(tmp_path / name), device="cpu", **extra)
         pipe = DeviceFundusPipeline.from_arrays(arrays, cfg.domain_idxs, [2, 2, 2], cfg.test_domain_idx,
@@ -614,11 +617,12 @@ def test_trace_dir_and_scan_window_leave_the_run_unchanged(tmp_path):
         rows = [json.loads(ln) for ln in open(tmp_path / name / "log" / "metrics.jsonl")]
         runs[name] = (summary, [r for r in rows if "loss/loss" in r],
                       checkpoint.read_checkpoint(summary["resume_checkpoint"])["state"])
-    plain = runs["plain"]
+    plain, per_step = runs["plain"], runs["per_step"]
+    assert [runs[n][0]["scan_window"] for n in ("per_step", "plain", "trace", "scan")] == [1, 4, 1, 4]
     drop_time = lambda rows: [{k: v for k, v in r.items() if k != "t"} for r in rows]
-    for name in ("trace", "scan"):
-        assert drop_time(runs[name][1]) == drop_time(plain[1]), name
-        _assert_tree_equal(runs[name][2], plain[2])
+    for name in ("plain", "trace", "scan"):
+        assert drop_time(runs[name][1]) == drop_time(per_step[1]), name
+        _assert_tree_equal(runs[name][2], per_step[2])
     path = runs["trace"][0]["trace"]
     assert os.path.dirname(path) == str(tmp_path / "trace") and os.path.basename(path) == "trace_steps_2-3.json"
     events = json.load(open(path))["traceEvents"]
