@@ -1,0 +1,32 @@
+"""Contexts of the four cells at a size a CPU test run holds: 32^2 images,
+a few images a domain (an epoch of six steps, as many as the steps
+compared), short windows, three supervised steps for the eval weights
+(cached under the test's directory)."""
+import importlib
+import time
+
+import torch
+
+from port_bench.lib import harness, spec
+
+SMALL = {
+    "fundus": dict(image_size=32, train_per_domain=[6, 36, 14], test_images=3, original_size=40),
+    "prostate": dict(image_size=32, train_per_domain=[12, 4, 4, 4, 4], test_volumes=2, volume_depth=10),
+}
+
+
+def tiny_context(workload: str, workdir: str, seed: int = 123, trace: bool = False, seconds: float = 0.3, **kw):
+    torch.set_num_threads(2)
+    bench = spec.benchmark()
+    w = spec.workload(bench, workload)
+    cfg = dict(spec.config(bench, w["config"]), **SMALL[w["config"]])
+    traffic = dict(spec.traffic(w["traffic"]), warmup_steps=2, trace_seconds=0.3, weights_steps=3, weights_images=8)
+    ref = importlib.import_module(f"port_bench.reference.{cfg['reference']}")
+    return harness.Context(workload, cfg, traffic, seed, seconds, trace, torch.device("cpu"), time.perf_counter(),
+                           workdir, ref, cache_dir=f"{workdir}/cache", **kw)
+
+
+def judged(workload: str, check):
+    """(correct, the judged numbers) of a run's check under the cell's limits."""
+    got = harness.judge(check, spec.limits(workload))
+    return all(v["value"] <= v["limit"] for v in got.values()), got
