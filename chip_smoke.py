@@ -147,8 +147,9 @@ result line):
               fundus and prostate (without and with in turns, then both
               under --deterministic: bit-equal; median step and peak memory
               each way), --global_batch 48 (LR x 3; img/s beside the
-              default run's) and --trace_dir (steps 2-12, a Chrome trace
-              that names K1's kernel)
+              default run's) and --trace_dir (windows of 4: a Chrome trace
+              of steps 4-12, graph replays included, that names K1's kernel
+              and holds a `ramdsir.train.replay` span a replay)
   host_loader training from the host loaders (device_data=False): fundus
               at the reference configuration from png_tree's 800^2 tree, two
               epochs each under the process and the thread loader (median
@@ -221,6 +222,11 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
+
+# the byte counts behind K1's and K2's bounds, and the union of device
+# intervals, are the benchmark's own (port_bench/lib)
+from port_bench.lib.counts import k1_min_bytes, k2_bytes
+from port_bench.lib.trace import union_length
 
 T0 = time.perf_counter()  # the script's start: each phase line carries its elapsed seconds
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -318,19 +324,6 @@ def peak_bandwidth(name):
 
 
 # --- K1 against its plain version ------------------------------------------
-
-
-def k1_min_bytes(n, c, h, wh, band, mode):
-    """The least bytes K1 must move, each needed byte once, for a finite
-    non-zero spectrum.  Full mode (in place) reads the whole (h, wh)
-    spectrum, 8 bytes a complex element, and writes back only the band:
-    out of it z*(amp/amp) is z.  It reads the donor amplitude (4 bytes) in
-    the band only.  Band and delta modes read and write the band and read its
-    donor amplitudes.  Plus one 4-byte ratio a sample."""
-    band_elems = n * c * (2 * band + 1) * (band + 1)
-    if mode == "full":
-        return 8 * n * c * h * wh + (8 + 4) * band_elems + 4 * n
-    return (8 + 8 + 4) * band_elems + 4 * n
 
 
 def cuda_time_ms(fn, reps=30, flush=None):
@@ -1350,7 +1343,8 @@ def device_breakdown(prof, wall_us, count, unit):
         per_name[e.name] = per_name.get(e.name, 0.0) + us
         group = next((g for g, keys in KERNEL_GROUPS if any(k in e.name for k in keys)), "elementwise/other")
         per_group[group] = per_group.get(group, 0.0) + us
-    busy_us = sum(per_name.values())
+    # busy: the union of the intervals, so that work on two streams at once counts once
+    busy_us = union_length((e.time_range.start, e.time_range.end) for e in kernels)
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:12]
     return {
         f"device_busy_ms_per_{unit}": busy_us / count / 1e3,
@@ -1681,13 +1675,6 @@ def phase_host_loader(torch, np, ram_mix, png_run, prostate, prostate_root):
 
 
 # --- --deterministic and K2 ---------------------------------------------------------
-
-
-def k2_bytes(shape, itemsize):
-    """The least bytes K2 must move for an (N, C, H, W) input gradient: the
-    (N, C, 2H, 2W) output gradient read once, the input gradient written once."""
-    n, c, h, w = shape
-    return itemsize * (4 * n * c * h * w + n * c * h * w)
 
 
 def phase_k2(torch, bw, shapes, forward_shapes):
@@ -2345,20 +2332,24 @@ def phase_variants(torch, np, ram_mix, arrays, testset, prostate, prostate_root,
     if cfg.batch_size_list != [16, 16, 16] or abs(cfg.lr - 3 * fundus_cfg("unused").lr) > 1e-12:
         raise SystemExit(f"variants fundus_global_batch: batches {cfg.batch_size_list}, lr {cfg.lr}")
 
-    # --trace_dir over steps 2-12: a Chrome trace that names K1's kernel
+    # --trace_dir with windows of 4: the trace of steps 4-12 (the first whole
+    # window after the capture to the one that holds step 12), graph replays
+    # and all, names K1's kernel and holds a ramdsir.train.replay span a replay
     trace_dir = os.path.join(VARIANTS_OUT, "trace")
     shutil.rmtree(trace_dir, ignore_errors=True)
-    cfg = fundus_cfg("fundus_trace", trace_dir=trace_dir)
+    cfg = fundus_cfg("fundus_trace", trace_dir=trace_dir, scan_window=4)
     entry, summary, _ = variant_fit(torch, np, ram_mix, "fundus_trace", cfg, fundus_pipe(cfg), TRACE_STEPS, testset)
     path = summary.get("trace")
     text = open(path).read() if path and os.path.isfile(path) else ""
     names_k1 = "mix_delta_flat_kernel" in text
+    replay_spans = sum(e.get("cat") == "user_annotation" and e.get("name") == "ramdsir.train.replay"
+                       for e in (json.loads(text)["traceEvents"] if text else []))
     record(entry, "fundus", trace=os.path.relpath(path, REPO) if path else None, trace_bytes=len(text),
-           trace_names_k1=names_k1, trace_k1_events=text.count("mix_delta_flat_kernel"))
+           trace_names_k1=names_k1, trace_k1_events=text.count("mix_delta_flat_kernel"), trace_replay_spans=replay_spans)
     if path:
         os.remove(path)  # tens of MB; the check is made
-    if not names_k1 or not path.endswith("trace_steps_2-12.json"):
-        raise SystemExit(f"variants fundus_trace: trace {path}, names K1 {names_k1}")
+    if not names_k1 or not path.endswith("trace_steps_4-12.json") or replay_spans != 9:
+        raise SystemExit(f"variants fundus_trace: trace {path}, names K1 {names_k1}, {replay_spans} replay spans")
     emit("variants_summary", seconds=time.perf_counter() - t_phase, k1_launches=launches)
     return out, launches
 

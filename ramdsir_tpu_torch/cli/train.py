@@ -75,12 +75,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--resume", type=str, default=None)
     p.add_argument("--max_steps", type=int, default=None, help="smoke-run cap")
     p.add_argument("--trace_dir", type=str, default=None,
-                   help="write a torch.profiler Chrome trace of steps 2-12 here")
+                   help="write a torch.profiler Chrome trace here of the first whole window from step 2 "
+                        "on (steps 2-12 at a step a window), graph replays included")
     p.add_argument("--scan_window", type=int, default=None,
                    help="steps a window with the device-resident data (default: the largest divisor "
                         "<= 256 of the steps up to the next eval); on a GPU a window replays a CUDA graph "
                         "of one step, on the CPU and under a process group it runs the steps eagerly; "
-                        "1 launches each step on its own, as --trace_dir and the host loaders do")
+                        "1 launches each step on its own, as the host loaders do")
     p.add_argument("--global_batch", type=int, default=None,
                    help="split this batch evenly over the source domains in place of the per-target "
                         "tables; without --lr the LR scales by its ratio to the table's batch")

@@ -10,9 +10,11 @@ from __future__ import annotations
 
 import gzip
 import struct
+import sys
 from typing import Tuple
 
 import numpy as np
+
 
 _DTYPES = {
     2: np.uint8,
@@ -34,7 +36,19 @@ def _open(path: str, mode: str):
 
 
 def read_nifti(path: str) -> np.ndarray:
-    """A NIfTI-1 volume as (z, y, x[, t...]), like SimpleITK."""
+    """A NIfTI-1 volume as (z, y, x[, t...]), like SimpleITK; the span
+    `ramdsir.data.decode` under a profiler.  A process that has not imported
+    torch (a host loader's worker) has no profiler: it reads without
+    importing torch."""
+    if "torch" not in sys.modules:
+        return _read_nifti(path)
+    from ramdsir_tpu_torch.utils.profiler import span
+
+    with span("ramdsir.data.decode"):
+        return _read_nifti(path)
+
+
+def _read_nifti(path: str) -> np.ndarray:
     with _open(path, "rb") as f:
         hdr = f.read(348)
         if len(hdr) < 348:

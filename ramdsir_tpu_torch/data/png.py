@@ -32,10 +32,12 @@ from __future__ import annotations
 
 import dataclasses
 import struct
+import sys
 import zlib
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
+
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 FILTERS = ("none", "sub", "up", "average", "paeth")  # filter type = index
@@ -139,7 +141,19 @@ def _unpack(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndarr
 
 
 def decode(source: Union[str, bytes], name: Optional[str] = None) -> PNGImage:
-    """Decode a PNG file (a path, or the file's bytes)."""
+    """Decode a PNG file (a path, or the file's bytes); the span
+    `ramdsir.data.decode` under a profiler.  A process that has not imported
+    torch (a host loader's worker) has no profiler: it reads without
+    importing torch."""
+    if "torch" not in sys.modules:
+        return _decode(source, name)
+    from ramdsir_tpu_torch.utils.profiler import span
+
+    with span("ramdsir.data.decode"):
+        return _decode(source, name)
+
+
+def _decode(source: Union[str, bytes], name: Optional[str]) -> PNGImage:
     if isinstance(source, (bytes, bytearray, memoryview)):
         data, name = bytes(source), name or "<bytes>"
     else:

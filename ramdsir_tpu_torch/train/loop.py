@@ -52,8 +52,11 @@ final checkpoints, and runs the in-training eval (running statistics, no
 collective) while the others wait at a barrier.  The summary's img/s is the
 global batch's.
 
-`cfg.trace_dir` (--trace_dir) profiles steps 2-12 (`utils.profiler.TraceWindow`)
-into a Chrome trace there (under a group, rank 0's).
+`cfg.trace_dir` (--trace_dir) profiles the run as it trains, windows and
+graph replays included: the first whole window from step 2 on, after the
+capture (steps 2-12 at W = 1; `utils.profiler.TraceWindow`), into a Chrome
+trace there (under a group, rank 0's).  The port's spans
+(`utils.profiler.span`, `ramdsir.<layer>.<what>`) name the phases in it.
 
 Scan windows (`cfg.scan_window`, --scan_window; `ramdsir_tpu/train/loop.py:230-355`):
 with the device pipeline the run goes in segments, the epochs up to the
@@ -63,8 +66,8 @@ segment's steps), each window min(W, left in the segment, left in the
 run) steps through the window step (`train.steps.ScanTrainSteps`).  On a
 card outside a process group a window is replays of a CUDA graph of one
 step, captured after the run's first two steps; on the CPU and under a
-group its steps run eagerly.  W = 1 (--scan_window 1, --trace_dir, and the
-host loaders, which train a step at a time) launches each step on its own.
+group its steps run eagerly.  W = 1 (--scan_window 1, and the host
+loaders, which train a step at a time) launches each step on its own.
 No step waits for the device: the steps' metrics go to
 `utils.logging.DeviceMetricsRing` (one window's (w,) tables at a time, read
 back when it fills, at each eval and at the end; a logged lr is float32),
@@ -103,7 +106,7 @@ from ramdsir_tpu_torch.train.state import init_state
 from ramdsir_tpu_torch.train.steps import check_supported, make_predict_fn, make_train_step
 from ramdsir_tpu_torch.utils.device import resolve_device
 from ramdsir_tpu_torch.utils.logging import DeviceMetricsRing, DeviceVizRing, MetricsWriter, decode_seg_map, make_grid
-from ramdsir_tpu_torch.utils.profiler import StepTimer, TraceWindow
+from ramdsir_tpu_torch.utils.profiler import StepTimer, TraceWindow, span
 from ramdsir_tpu_torch.utils.torch_compat import export_torch_checkpoint
 
 
@@ -218,9 +221,10 @@ class HostToDevice:
     steps before it; the compute stream waits on the copy's event before
     the step that reads the batch, and the pinned batch stays referenced
     until that step has been queued.  Per batch it records the host's wait
-    for the loader (`wait_ms`) and the copy's device time (`h2d_ms()`, read
-    once the copies are done).  On the CPU the arrays are wrapped as they
-    are."""
+    for the loader (`wait_ms`, the span `ramdsir.input.wait`) and the copy's
+    device time (`h2d_ms()`, read once the copies are done; the host's part,
+    pinning and queueing, is the span `ramdsir.input.copy`).  On the CPU the
+    arrays are wrapped as they are."""
 
     def __init__(self, batches: Iterable[Dict[str, np.ndarray]], device: torch.device, depth: int):
         self.batches = batches
@@ -238,10 +242,11 @@ class HostToDevice:
 
     def _next(self, it) -> Optional[Dict[str, np.ndarray]]:
         """The loader's next batch (None at the epoch's end), timed."""
-        t = time.perf_counter()
-        batch = next(it, None)
+        timing: Dict[str, float] = {}
+        with span("ramdsir.input.wait", timing, "wait"):
+            batch = next(it, None)
         if batch is not None:
-            self.wait_ms.append(1e3 * (time.perf_counter() - t))
+            self.wait_ms.append(1e3 * timing["wait"])
         return batch
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
@@ -259,12 +264,13 @@ class HostToDevice:
                 if batch is None:
                     exhausted = True
                     break
-                pinned = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory() for k, v in batch.items()}
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                with torch.cuda.stream(side):
-                    start.record(side)
-                    dev = {k: v.to(self.device, non_blocking=True) for k, v in pinned.items()}
-                    end.record(side)
+                with span("ramdsir.input.copy"):
+                    pinned = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory() for k, v in batch.items()}
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    with torch.cuda.stream(side):
+                        start.record(side)
+                        dev = {k: v.to(self.device, non_blocking=True) for k, v in pinned.items()}
+                        end.record(side)
                 self._events.append((start, end))
                 pending.append((pinned, dev, end))
             if not pending:
@@ -408,9 +414,10 @@ def scan_window_size(
     the next eval, min(eval_every, epochs).  --scan_window sets W; by
     default W is the largest divisor <= 256 of the segment's steps (of
     max_steps where that is fewer), or min(those steps, 256) where none is.
-    W = 1 and one-epoch segments with --trace_dir and with the host loaders
-    (device_data False)."""
-    if not device_data or cfg.trace_dir:
+    W = 1 and one-epoch segments with the host loaders (device_data False),
+    which train a step at a time; --trace_dir changes nothing: its trace
+    shows the windows the run trains."""
+    if not device_data:
         return 1, 1
     seg_epochs = max(1, min(eval_every, cfg.epochs))
     if cfg.scan_window:
@@ -471,36 +478,36 @@ def _train(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset, s
             w = min(scan_w, seg_len - pos, left())
             want_viz = logs_images(step, w)
             if tracer:
-                tracer.before_step(step)
+                tracer.before_window(step, w, step + left())
             metrics, viz = train_step(state, {k: v[pos : pos + w] for k, v in plan.items()}, generator,
                                       viz=want_viz, timer=timer)
-            if tracer:
-                tracer.after_step(step)
             if is_main:
                 ring.append(step, metrics)
                 if want_viz:
                     vizring.append(step + w - 1, viz)  # viz assembled on every rank (a collective)
             step += w
             pos += w
+            if tracer:
+                tracer.after_window(step)
 
     def run_host_epoch(stream: HostToDevice) -> None:
         """One epoch of host batches, a step each."""
         nonlocal step
         for batch in stream:
             if tracer:
-                tracer.before_step(step)
+                tracer.before_window(step, 1, step + left())
             log_images = logs_images(step, 1)
             metrics = train_step(state, batch, generator, viz=log_images)
             if log_images:
                 viz = metrics.pop("_viz")  # assembled on every rank (a collective), kept by rank 0
                 if is_main:
                     vizring.append(step, viz)
-            if tracer:
-                tracer.after_step(step)
             timer.tick(b_real)
             if is_main and step % cfg.log_interval == 0:
                 ring.append(step, metrics)
             step += 1
+            if tracer:
+                tracer.after_window(step)
             if left() <= 0:
                 return
 

@@ -91,7 +91,6 @@ uncast float32 image (`ramdsir_tpu/train/steps.py:114`, `:242`, `:330`).
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
@@ -121,6 +120,7 @@ from ramdsir_tpu_torch.ops.ram import (
     sample_ram_ratios,
 )
 from ramdsir_tpu_torch.train.state import TrainState
+from ramdsir_tpu_torch.utils.profiler import span
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -238,7 +238,12 @@ class ScanTrainSteps:
     counts its launch once at the capture and not at a replay; the kernel's
     own counter on the device (`ops.ram_mix.device_launches`) counts every
     run.  `replays`, `capture_seconds` and `graph_pool_bytes` (device memory the
-    capture reserved) describe the graph."""
+    capture reserved) describe the graph.
+
+    Under a profiler the call shows as the span `ramdsir.train.window`,
+    holding `ramdsir.train.inputs` (the upload), one `ramdsir.train.eager`
+    a step run eagerly, `ramdsir.train.capture` and one
+    `ramdsir.train.replay` a replay (`utils.profiler.span`)."""
 
     def __init__(self, body, new_inputs, window_draws, batch: int, lr_at, window: Optional[int], viz_in_graph: bool):
         self._body, self._new_inputs, self._window_draws = body, new_inputs, window_draws
@@ -258,15 +263,20 @@ class ScanTrainSteps:
 
     def __call__(self, state: TrainState, plan: Mapping, generator: Optional[torch.Generator] = None,
                  draws: Optional[Mapping] = None, viz: bool = False, timer=None):
+        with span("ramdsir.train.window"):
+            return self._window(state, plan, generator, draws, viz, timer)
+
+    def _window(self, state: TrainState, plan: Mapping, generator, draws, viz: bool, timer):
         w = len(plan["img_idx"])
         device = next(state.models["encoder"].parameters()).device
         if self.inputs is None:
             self.inputs = self._new_inputs(max(w, self.window or 0), device)
         inputs = self.inputs
-        values: Dict[str, object] = dict(self._window_draws(generator, draws, w))
-        values.update({k: np.asarray(plan[k]) for k in ("img_idx", "donor_idx")})
-        values["lr"] = [self._lr_at(state.step + i) for i in range(w)]
-        inputs.load(values)
+        with span("ramdsir.train.inputs"):
+            values: Dict[str, object] = dict(self._window_draws(generator, draws, w))
+            values.update({k: np.asarray(plan[k]) for k in ("img_idx", "donor_idx")})
+            values["lr"] = [self._lr_at(state.step + i) for i in range(w)]
+            inputs.load(values)
         tick = (lambda n: timer.tick(self._batch * n, n)) if timer is not None else (lambda n: None)
         out_viz: Dict[str, torch.Tensor] = {}
         done = 0
@@ -278,7 +288,8 @@ class ScanTrainSteps:
             side.wait_stream(compute)
             with torch.cuda.stream(side):
                 for i in range(done):
-                    _, out_viz = self._body(state, inputs, None, viz and i == w - 1)
+                    with span("ramdsir.train.eager"):
+                        _, out_viz = self._body(state, inputs, None, viz and i == w - 1)
                     tick(1)
             compute.wait_stream(side)
             for t in out_viz.values():  # made on the side stream, read on the compute stream
@@ -289,14 +300,16 @@ class ScanTrainSteps:
         if self.graph is not None:
             r = w - done
             for _ in range(r):
-                self.graph.replay()
+                with span("ramdsir.train.replay"):
+                    self.graph.replay()
             self.replays += r
             tick(r)
             if viz:
                 out_viz = {k: t.clone() for k, t in self._graph_viz.items()}
         else:
             for i in range(done, w):
-                _, out_viz = self._body(state, inputs, None, viz and i == w - 1)
+                with span("ramdsir.train.eager"):
+                    _, out_viz = self._body(state, inputs, None, viz and i == w - 1)
                 tick(1)
         state.step += w
         return inputs.metrics(w), (out_viz if viz else {})
@@ -307,11 +320,11 @@ class ScanTrainSteps:
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
-            _, viz = self._body(state, inputs, None, self.viz_in_graph)
-        self.capture_seconds = time.perf_counter() - t0
+        graph, timing = torch.cuda.CUDAGraph(), {}
+        with span("ramdsir.train.capture", timing, "capture"):
+            with torch.cuda.graph(graph, stream=stream):
+                _, viz = self._body(state, inputs, None, self.viz_in_graph)
+        self.capture_seconds = timing["capture"]
         self.graph_pool_bytes = torch.cuda.memory_reserved(device) - reserved
         self.graph, self._graph_viz = graph, viz
 

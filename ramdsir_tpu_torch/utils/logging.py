@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ramdsir_tpu_torch.data import png
+from ramdsir_tpu_torch.utils.profiler import span
 
 
 def make_grid(images: np.ndarray, ncols: int = 3, normalize: bool = True) -> np.ndarray:
@@ -105,7 +106,7 @@ class DeviceMetricsRing:
     row of their own.  A window that would overfill the buffer flushes it
     first; the training loop flushes again at each eval and at the end.
     Values are float32, as in the JAX ring: a logged lr is the float32
-    value."""
+    value.  Under a profiler: spans `ramdsir.ring.append`, `ramdsir.ring.flush`."""
 
     def __init__(
         self,
@@ -125,33 +126,35 @@ class DeviceMetricsRing:
         self.steps: List[int] = []  # row i of buf belongs to step steps[i]
 
     def append(self, start_step: int, metrics: Dict[str, torch.Tensor]) -> None:
-        if self.names is None:
-            self.names = sorted(metrics)
-            device = next(iter(metrics.values())).device
-            self.buf = torch.zeros((self.cap, len(self.names)), dtype=torch.float32, device=device)
-        table = torch.stack([torch.atleast_1d(metrics[k]).float() for k in self.names], dim=-1)
-        w = table.shape[0]
-        if w > self.cap:
-            raise ValueError(f"a window of {w} steps does not fit a ring of {self.cap}")
-        if len(self.steps) + w > self.cap:
-            self.flush()
-        n = len(self.steps)
-        self.buf[n : n + w].copy_(table)
-        self.steps.extend(range(start_step, start_step + w))
+        with span("ramdsir.ring.append"):
+            if self.names is None:
+                self.names = sorted(metrics)
+                device = next(iter(metrics.values())).device
+                self.buf = torch.zeros((self.cap, len(self.names)), dtype=torch.float32, device=device)
+            table = torch.stack([torch.atleast_1d(metrics[k]).float() for k in self.names], dim=-1)
+            w = table.shape[0]
+            if w > self.cap:
+                raise ValueError(f"a window of {w} steps does not fit a ring of {self.cap}")
+            if len(self.steps) + w > self.cap:
+                self.flush()
+            n = len(self.steps)
+            self.buf[n : n + w].copy_(table)
+            self.steps.extend(range(start_step, start_step + w))
 
     def flush(self) -> None:
         """One device-to-host copy; writes the rows whose step hits log_interval."""
         if not self.steps:
             return
-        table = self.buf[: len(self.steps)].cpu().numpy()
-        for s, row in zip(self.steps, table):
-            if s % self.log_interval == 0:
-                vals = dict(zip(self.names, row))
-                bare = {k: vals.pop(k) for k in list(vals) if k in self.no_prefix}
-                self.writer.add_scalars(vals, s, prefix=self.prefix)
-                if bare:
-                    self.writer.add_scalars(bare, s)
-        self.steps.clear()
+        with span("ramdsir.ring.flush"):
+            table = self.buf[: len(self.steps)].cpu().numpy()
+            for s, row in zip(self.steps, table):
+                if s % self.log_interval == 0:
+                    vals = dict(zip(self.names, row))
+                    bare = {k: vals.pop(k) for k in list(vals) if k in self.no_prefix}
+                    self.writer.add_scalars(vals, s, prefix=self.prefix)
+                    if bare:
+                        self.writer.add_scalars(bare, s)
+            self.steps.clear()
 
 
 class DeviceVizRing:
@@ -162,31 +165,34 @@ class DeviceVizRing:
     the events and hands each step's arrays to `log_fn(viz, step)`.  The
     JAX package quantises the grids to uint8 on the device for a slow
     relay link; the port keeps them float32, so its grids are `_log_viz`'s
-    of the unquantised arrays.  At most `cap` steps are held, the newest."""
+    of the unquantised arrays.  At most `cap` steps are held, the newest.
+    Under a profiler: spans `ramdsir.viz.append`, `ramdsir.viz.flush`."""
 
     def __init__(self, cap: int = 32):
         self.cap = cap
         self._slots: List[Tuple[int, Dict[str, torch.Tensor], Optional[torch.cuda.Event]]] = []
 
     def append(self, step: int, viz: Dict[str, torch.Tensor]) -> None:
-        host, event = {}, None
-        for k, v in viz.items():
-            v = v.detach()
-            if v.is_cuda:
-                host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                host[k].copy_(v, non_blocking=True)
-            else:
-                host[k] = v.clone()
-        if any(v.is_cuda for v in viz.values()):
-            event = torch.cuda.Event()
-            event.record()
-        if len(self._slots) >= self.cap:
-            self._slots.pop(0)
-        self._slots.append((step, host, event))
+        with span("ramdsir.viz.append"):
+            host, event = {}, None
+            for k, v in viz.items():
+                v = v.detach()
+                if v.is_cuda:
+                    host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    host[k].copy_(v, non_blocking=True)
+                else:
+                    host[k] = v.clone()
+            if any(v.is_cuda for v in viz.values()):
+                event = torch.cuda.Event()
+                event.record()
+            if len(self._slots) >= self.cap:
+                self._slots.pop(0)
+            self._slots.append((step, host, event))
 
     def flush(self, log_fn: Callable[[Dict[str, np.ndarray], int], None]) -> None:
-        for step, host, event in self._slots:
-            if event is not None:
-                event.synchronize()
-            log_fn({k: v.numpy() for k, v in host.items()}, step)
-        self._slots.clear()
+        with span("ramdsir.viz.flush"):
+            for step, host, event in self._slots:
+                if event is not None:
+                    event.synchronize()
+                log_fn({k: v.numpy() for k, v in host.items()}, step)
+            self._slots.clear()

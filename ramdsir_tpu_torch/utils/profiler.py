@@ -1,15 +1,18 @@
 """Step timing and throughput (PyTorch port of `ramdsir_tpu/utils/profiler.py`),
-the --trace_dir profiler window (`ramdsir_tpu/train/loop.py:386-393`), and
-`trace_context`, a profiler trace around any block."""
+`span`, the port's named ranges on the profiler's clock, the --trace_dir
+profiler window (`ramdsir_tpu/train/loop.py:386-393`), and `trace_context`,
+a profiler trace around any block."""
 from __future__ import annotations
 
 import contextlib
 import os
 import statistics
 import time
-from typing import Iterator, List, Optional, Union
+from typing import Dict, Iterator, List, Optional, Union
 
 import torch
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
 
 class StepTimer:
@@ -132,13 +135,75 @@ class StepTimer:
         return 1e3 * statistics.median(seconds) if seconds else 0.0
 
 
+class span:
+    """`with span(name, timing=None, key=None):` a named range of host time.
+
+    While a torch.profiler records (`torch._C._autograd._profiler_enabled()`)
+    it enters `torch.profiler.record_function(name)`, so the range shows in
+    the trace on the device timeline's clock; otherwise it enters nothing.
+    Given a `timing` dict it adds the range's host seconds to
+    `timing[key or name]`.  With no profiler recording it costs that check
+    and, with a dict, two `time.perf_counter()` reads.  The port's ranges
+    are named `ramdsir.<layer>.<what>`."""
+
+    __slots__ = ("name", "timing", "key", "_range", "_t0")
+
+    def __init__(self, name: str, timing: Optional[Dict[str, float]] = None, key: Optional[str] = None):
+        self.name, self.timing, self.key = name, timing, key or name
+        self._range = None
+
+    def __enter__(self) -> "span":
+        if _profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        if self.timing is not None:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.timing is not None:
+            self.timing[self.key] = self.timing.get(self.key, 0.0) + time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+
+
+class _Recording:
+    """A started torch.profiler: CPU activity and, on a CUDA device, the
+    card's kernels and copies.  `export(path)` synchronises the card,
+    stops and writes a Chrome trace; `stop()` discards it."""
+
+    def __init__(self, device: torch.device):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.device = device
+        cuda = [ProfilerActivity.CUDA] if device.type == "cuda" else []
+        self._prof = profile(activities=[ProfilerActivity.CPU] + cuda)
+        self._prof.start()
+
+    def stop(self) -> None:
+        self._prof.stop()
+
+    def export(self, path: str) -> str:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._prof.stop()
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._prof.export_chrome_trace(path)
+        return path
+
+
 class TraceWindow:
-    """torch.profiler over steps FIRST..LAST of a run (--trace_dir; 2-12, as
-    the JAX package's jax.profiler window, which skips the compile step):
-    CPU activity and, on a CUDA device, the card's kernels.  The trace stops
-    after a CUDA synchronise when step LAST ends, or at `close()` if the run
-    ends first, and goes to `trace_dir` as a Chrome trace; `path` names the
-    file.  It reads the steps and changes none of them."""
+    """torch.profiler over the training path of a run (--trace_dir), as it
+    trains: graph replays on a card, windows of W steps.  The trace opens
+    before the first window that starts at or after step FIRST and is not
+    the run's first (which holds the eager warm-up steps and, on a card,
+    the graph's capture), and closes when the window that holds step LAST
+    has been queued and has run (a CUDA synchronise): one whole window at
+    least, steps FIRST..LAST at a step a window.  A run with no such window
+    traces its last window if that holds or follows step FIRST.  The trace
+    goes to `trace_dir` as a Chrome trace named by its steps; `path` names
+    the file.  It reads the steps and changes none of them."""
 
     FIRST, LAST = 2, 12
 
@@ -146,35 +211,35 @@ class TraceWindow:
         self.trace_dir = trace_dir
         self.device = torch.device(device)
         self.path: Optional[str] = None
-        self._prof = None
-        self._last_seen = self.FIRST
+        self._rec: Optional[_Recording] = None
+        self._windows = 0
+        self._first = self._last = self.FIRST
 
-    def before_step(self, step: int) -> None:
-        if step == self.FIRST and self._prof is None and self.path is None:
-            from torch.profiler import ProfilerActivity, profile
+    def before_window(self, step: int, w: int, end: int) -> None:
+        """Before the window of steps step..step+w-1; `end`, the step the
+        run stops at."""
+        if self._rec is not None or self.path is not None:
+            return
+        whole = step >= self.FIRST and self._windows > 0
+        last = step + w > self.FIRST and step + w >= end
+        if whole or last:
+            self._first = step
+            self._rec = _Recording(self.device)
 
-            activities = [ProfilerActivity.CPU]
-            if self.device.type == "cuda":
-                activities.append(ProfilerActivity.CUDA)
-            self._prof = profile(activities=activities)
-            self._prof.start()
-
-    def after_step(self, step: int) -> None:
-        self._last_seen = step
-        if step == self.LAST:
+    def after_window(self, end: int) -> None:
+        """After the window that ends before step `end` has been queued."""
+        self._windows += 1
+        self._last = end - 1
+        if end - 1 >= self.LAST:
             self.close()
 
     def close(self) -> None:
-        if self._prof is None:
+        if self._rec is None:
             return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self._prof.stop()
-        os.makedirs(self.trace_dir, exist_ok=True)
-        self.path = os.path.join(self.trace_dir, f"trace_steps_{self.FIRST}-{self._last_seen}.json")
-        self._prof.export_chrome_trace(self.path)
-        self._prof = None
-        print(f"profiler trace (steps {self.FIRST}-{self._last_seen}) written to {self.path}", flush=True)
+        self.path = os.path.join(self.trace_dir, f"trace_steps_{self._first}-{self._last}.json")
+        self._rec.export(self.path)
+        self._rec = None
+        print(f"profiler trace (steps {self._first}-{self._last}) written to {self.path}", flush=True)
 
 
 @contextlib.contextmanager
@@ -186,14 +251,11 @@ def trace_context(trace_dir: Optional[str]) -> Iterator[Optional[str]]:
     if not trace_dir:
         yield None
         return
-    from torch.profiler import ProfilerActivity, profile
-
-    cuda = torch.cuda.is_available()
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    os.makedirs(trace_dir, exist_ok=True)
     path = os.path.join(trace_dir, "trace.json")
-    with profile(activities=activities) as prof:
+    rec = _Recording(torch.device("cuda" if torch.cuda.is_available() else "cpu"))
+    try:
         yield path
-        if cuda:
-            torch.cuda.synchronize()
-    prof.export_chrome_trace(path)
+    except BaseException:
+        rec.stop()
+        raise
+    rec.export(path)

@@ -1,7 +1,8 @@
 """K1, K2 and K3 on the card against their plain versions, the eval path on
 the card against the CPU, a bfloat16 step through K1, a `.ckpt` round trip
 of a card state (capturable Adam), deterministic steps that repeat bit for
-bit, two graph windows bit-equal to single steps, the GN / IN
+bit, two graph windows bit-equal to single steps, a window's replays as
+spans under the profiler, the GN / IN
 forwards against the CPU, --remat bit-equal to no remat, the host input
 path on the card: the host-to-device stream, the viz ring, `fit` on the
 host loaders, and data-parallel steps on the card: one NCCL rank, and two
@@ -412,6 +413,47 @@ def test_graph_windows_match_single_steps_on_card(gen):
     for p, q in zip(pa, pb):
         sa, sb = a.optimizer.state[p], b.optimizer.state[q]
         assert sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def test_replays_show_as_spans_on_card(gen):
+    """A graph window of 3 fundus steps at 64^2 under torch.profiler, after
+    the window that captured the graph: one `ramdsir.train.replay` span a
+    replay the window made, all inside its `ramdsir.train.window`, and no
+    eager step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ramdsir_tpu_torch.config import TrainConfig
+    from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
+    from ramdsir_tpu_torch.data.synthetic import fundus_arrays
+    from ramdsir_tpu_torch.train.state import init_state
+    from ramdsir_tpu_torch.train.steps import make_train_step
+
+    cfg = TrainConfig(dataset="fundus", domain_idxs=(1, 2, 3), test_domain_idx=0, ram=True, rec=True,
+                      is_out_domain=True, consistency=True, consistency_type="kd", image_size=64,
+                      device="cuda").resolve()
+    pipe = DeviceFundusPipeline.from_arrays(
+        fundus_arrays(per_domain_train=8, size=64), cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx,
+        is_out_domain=True, seed=0, precompute_donor_amp=cfg.ram_precompute_donor_amp, device="cuda")
+    plans = [pipe.epoch_plan() for _ in range(6)]
+    plan = {k: np.concatenate([p[k] for p in plans])[:6] for k in plans[0]}
+    state = init_state(cfg, torch.Generator().manual_seed(0), "cuda")
+    g = torch.Generator().manual_seed(1)
+    window = make_train_step(cfg, 20, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data,
+                             scan=True, window=3)
+    window(state, {k: v[:3] for k, v in plan.items()}, g)  # 2 eager steps, the capture, a replay
+    before = window.replays
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        window(state, {k: v[3:] for k, v in plan.items()}, g)
+        torch.cuda.synchronize()
+    spans = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("ramdsir.train."):
+            spans.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
+    (w0, w1), = spans["ramdsir.train.window"]
+    assert len(spans["ramdsir.train.replay"]) == window.replays - before == 3
+    assert all(w0 <= s and e <= w1 for s, e in spans["ramdsir.train.replay"])
+    assert "ramdsir.train.eager" not in spans and "ramdsir.train.capture" not in spans
 
 
 # --- K2 and K3, the deterministic upsample, and a deterministic step ---------------

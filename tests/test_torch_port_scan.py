@@ -301,7 +301,7 @@ W_RULE = [
     ((21, 3, 2, None, None, None, True), (42, 2)),  # the segment is at most the run's epochs
     ((21, 1, 100, None, 4, None, True), (4, 1)),  # --scan_window
     ((21, 2, 100, None, 1, None, True), (1, 2)),  # --scan_window 1: a step at a time
-    ((21, 1, 100, None, 8, "trace", True), (1, 1)),  # --trace_dir
+    ((21, 1, 100, None, 8, "trace", True), (8, 1)),  # --trace_dir: the trace shows the windows the run trains
     ((21, 1, 100, None, None, None, False), (1, 1)),  # the host loaders
 ]
 

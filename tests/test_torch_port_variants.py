@@ -593,10 +593,10 @@ def test_groupnorm_checkpoints_interchange(gn_states, tmp_path):
 def test_trace_dir_and_scan_window_leave_the_run_unchanged(tmp_path):
     """fit for 4 steps with --scan_window 1 (a step at a time, the per-step
     reference), as it is (the default window: all 4 steps), with
-    --trace_dir (W = 1; the window opens at step 2 and closes at the run's
-    end) and with --scan_window 4: the final states and the logged losses
-    bit-equal to the per-step run's; the trace is a Chrome trace of the
-    steps' ops."""
+    --trace_dir (the default window, which holds step 2 and is the run's
+    last: the trace is of steps 0-3) and with --scan_window 4: the final
+    states and the logged losses bit-equal to the per-step run's; the trace
+    is a Chrome trace of the steps' ops and the port's spans."""
     import json
 
     from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
@@ -618,13 +618,14 @@ def test_trace_dir_and_scan_window_leave_the_run_unchanged(tmp_path):
         runs[name] = (summary, [r for r in rows if "loss/loss" in r],
                       checkpoint.read_checkpoint(summary["resume_checkpoint"])["state"])
     plain, per_step = runs["plain"], runs["per_step"]
-    assert [runs[n][0]["scan_window"] for n in ("per_step", "plain", "trace", "scan")] == [1, 4, 1, 4]
+    assert [runs[n][0]["scan_window"] for n in ("per_step", "plain", "trace", "scan")] == [1, 4, 4, 4]
     drop_time = lambda rows: [{k: v for k, v in r.items() if k != "t"} for r in rows]
     for name in ("plain", "trace", "scan"):
         assert drop_time(runs[name][1]) == drop_time(per_step[1]), name
         _assert_tree_equal(runs[name][2], per_step[2])
     path = runs["trace"][0]["trace"]
-    assert os.path.dirname(path) == str(tmp_path / "trace") and os.path.basename(path) == "trace_steps_2-3.json"
+    assert os.path.dirname(path) == str(tmp_path / "trace") and os.path.basename(path) == "trace_steps_0-3.json"
     events = json.load(open(path))["traceEvents"]
     assert any("convolution" in str(e.get("name", "")) for e in events)
+    assert sum(e.get("name") == "ramdsir.train.eager" for e in events) == 4
     assert "trace" not in plain[0]
