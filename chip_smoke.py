@@ -4,10 +4,11 @@
 Phases, one JSON line each (any failure raises and exits non-zero, with no
 result line):
   device      the card, its power limit, the TF32 settings
-  build       K1 (csrc/ram_mix.cu) and K2 and K3 (csrc/upsample2x.cu)
-              compiled with nvcc for sm_90a, the host post-processing library
-              (native/postproc.cpp) and the PNG unfilter (native/png.cpp)
-              with g++, all started together, beside ptxas's registers
+  build       K1 (csrc/ram_mix.cu), K2 and K3 (csrc/upsample2x.cu) and the
+              batch norm (csrc/batch_norm.cu) compiled with nvcc for
+              sm_90a, the host post-processing library (native/postproc.cpp)
+              and the PNG unfilter (native/png.cpp) with g++, all started
+              together, beside ptxas's registers
   cuda_tests  the card tests (tests/test_torch_port_cuda.py, marker cuda) in
               a subprocess: all must pass
   kernel      K1 against its plain PyTorch version on the card, in full,
@@ -26,6 +27,14 @@ result line):
               the same two after a flush that leaves L2 clean (a read instead
               of zero_); the bound from `k1_min_bytes`.  delta@384x384
               is timed the same way
+  batch_norm  the grouped batch norm's kernels (csrc/batch_norm.cu) at every
+              norm shape of a fundus and a prostate step
+              (tools/batch_norm_study.py): forward and backward against the
+              plain version in float64 (within BN_TOL) and two runs bit-equal;
+              each shape's device ms (torch.profiler: forward, backward, by
+              kernel), cuDNN's per-group F.batch_norm + torch.cat forward and
+              backward (`library_ms`), the plain version's, and the bound (5
+              float32 passes); `batch_norm_summary` sums a step's 38 norms
   ram_oracle  the RAM functions on the card against a float64 numpy oracle
   main_path   the fundus trainer (`train.loop.fit`, its default scan windows:
               CUDA-graph replays; the window, replays, capture seconds and
@@ -41,7 +50,9 @@ result line):
               test batch 8: six batches and a tail of 2); the last eval's
               seconds, forward ms per batch (CUDA-synchronised), readback
               ms, host ms per image, Dice, the best file (which must load
-              strictly) and the CSV rows; eval adds no K1 launch
+              strictly) and the CSV rows; eval adds no K1 launch; the batch
+              norm's four kernels each run 38 times a float32 step (none in
+              bfloat16 or in eval), counted on the card
   bf16_path   the same trainer in bfloat16 (--compute_dtype and
               predict_dtype bfloat16), 21 steps (one epoch, one eval), with
               the same checks, beside the float32 default run's median
@@ -253,6 +264,8 @@ PNG_FILTERS = (0, 1, 2, 3, 4, "adaptive")  # the n-th file written takes PNG_FIL
 HOST_OUT = os.path.join(OUT, "host_loader")
 HOST_EPOCHS, HOST_LOG_IMAGES, HOST_COMPARED_BATCHES = 2, 5, 4  # fundus: 10 steps an epoch
 DET_STEPS = 8  # steps of each --deterministic run
+NORMS_PER_STEP = 38  # a step's train-mode norms at n=16: 26 dual BatchNorms, 12 segment DSBNs
+BN_TOL = 5e-6  # the batch norm's kernels against float64, as tests/test_torch_port_cuda.py's BN_TOL
 SOURCE_K2 = "ramdsir_tpu_torch/csrc/upsample2x.cu"
 # K2 has no TPU kernel: the JAX package's upsample is jax.image.resize, differentiated by XLA
 REPLACES_K2 = "ramdsir_tpu/models/unet.py:76"
@@ -273,29 +286,34 @@ def sync(torch):
 def zero_launches(torch):
     """Every launch count to 0 before a run: the wrappers' counts on the
     host and the kernels' own counts on the card."""
-    from ramdsir_tpu_torch.ops import ram_mix, upsample
+    from ramdsir_tpu_torch.ops import batch_norm, ram_mix, upsample
 
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
     ram_mix.launches, upsample.launches, upsample.forward_launches = 0, 0, 0
+    batch_norm.launches, batch_norm.backward_launches = 0, 0
     ram_mix.launches_by_path.update(dict.fromkeys(ram_mix.launches_by_path, 0))
     ram_mix.zero_device_launches()
     upsample.zero_device_launches()
+    batch_norm.zero_device_launches()
 
 
 def read_launches(torch):
     """The launches since `zero_launches` as the kernels counted them on the
     card while they ran, CUDA graph replays included: K1 (`k1`, and
-    `k1_paths`, the paths with any), K2 (`k2`) and K3 (`k3`); and under
-    `host` the wrappers' counts, which see a launch recorded into a graph
-    once and none of its replays."""
-    from ramdsir_tpu_torch.ops import ram_mix, upsample
+    `k1_paths`, the paths with any), K2 (`k2`), K3 (`k3`) and the batch
+    norm's four kernels (`bn`, by kernel); and under `host` the wrappers'
+    counts, which see a launch recorded into a graph once and none of its
+    replays (`bn`: forward and backward calls)."""
+    from ramdsir_tpu_torch.ops import batch_norm, ram_mix, upsample
 
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
     paths, up = ram_mix.device_launches(), upsample.device_launches()
     return dict(k1=sum(paths.values()), k1_paths={p: k for p, k in paths.items() if k}, k2=up["backward"],
-                k3=up["forward"], host=dict(k1=ram_mix.launches, k2=upsample.launches, k3=upsample.forward_launches))
+                k3=up["forward"], bn=batch_norm.device_launches(),
+                host=dict(k1=ram_mix.launches, k2=upsample.launches, k3=upsample.forward_launches,
+                          bn=[batch_norm.launches, batch_norm.backward_launches]))
 
 
 def emit(phase, **kw):
@@ -692,7 +710,8 @@ def phase_main_path(torch, np, ram_mix, arrays, testset):
         evals = [r["eval/avg_dice"] for r in rows if "eval/avg_dice" in r]
         entry = dict(
             run=name, steps=summary["steps"], k1_launches=launches, k1_paths=paths,
-            k1_host_launches=counts["host"]["k1"], losses_finite=finite,
+            k1_host_launches=counts["host"]["k1"], bn_launches=counts["bn"], bn_host_launches=counts["host"]["bn"],
+            losses_finite=finite,
             first_loss=rows[0]["loss/loss"], last_loss=[r for r in rows if "loss/loss" in r][-1]["loss/loss"],
             median_step_ms=summary["median_step_ms"], images_per_sec=summary["images_per_sec"],
             peak_memory_bytes=peak, wall_s=wall, batch=sum(cfg.batch_size_list), image_size=S,
@@ -718,6 +737,9 @@ def phase_main_path(torch, np, ram_mix, arrays, testset):
             raise SystemExit(f"main path {name}: {summary['steps']} steps, {launches} K1 launches, expected {steps}")
         if paths != {MAIN_PATHS[name]: steps}:
             raise SystemExit(f"main path {name}: K1 paths {paths}, expected {MAIN_PATHS[name]} only")
+        bn_expected = NORMS_PER_STEP * steps if cfg.compute_dtype == "float32" else 0
+        if counts["bn"] != {k: bn_expected for k in counts["bn"]}:
+            raise SystemExit(f"main path {name}: batch norm kernels ran {counts['bn']}, expected {bn_expected} each")
         runs[name] = entry
     return runs
 
@@ -1088,7 +1110,7 @@ def phase_prostate_path(torch, np, ram_mix, prostate, data_root, bf16_beside=Non
     timing = summary["eval_timing"]
     entry = dict(
         run="prostate_bf16" if bf16 else "prostate", steps=summary["steps"], k1_launches=launches, k1_paths=paths,
-        k1_host_launches=counts["host"]["k1"],
+        k1_host_launches=counts["host"]["k1"], bn_launches=counts["bn"], bn_host_launches=counts["host"]["bn"],
         losses_finite=finite, compute_dtype=cfg.compute_dtype, predict_dtype=cfg.predict_dtype,
         first_loss=steps_logged[0]["loss/loss"], last_loss=steps_logged[-1]["loss/loss"],
         median_step_ms=summary["median_step_ms"], images_per_sec=summary["images_per_sec"],
@@ -1110,6 +1132,9 @@ def phase_prostate_path(torch, np, ram_mix, prostate, data_root, bf16_beside=Non
         raise SystemExit(f"{phase}: {len(csv_rows)} CSV rows (expected {expected_evals}), Dice {summary['dice']}")
     if timing["volumes"] != PROSTATE_VOLUMES or timing["batches"] != PROSTATE_VOLUMES * (PROSTATE_DEPTH // cfg.test_batch_size):
         raise SystemExit(f"{phase}: eval read {timing['volumes']} volumes in {timing['batches']} batches")
+    bn_expected = 0 if bf16 else NORMS_PER_STEP * steps
+    if counts["bn"] != {k: bn_expected for k in counts["bn"]}:
+        raise SystemExit(f"{phase}: batch norm kernels ran {counts['bn']}, expected {bn_expected} each")
     return entry
 
 
@@ -1757,6 +1782,47 @@ def phase_k2(torch, bw, shapes, forward_shapes):
             raise SystemExit(f"K3 at {key}: {err} from its plain version, {lib32_err} from aten's float32 forward")
         out3[key] = entry
     return out, out3
+
+
+def phase_batch_norm(torch, bw):
+    """The grouped batch norm's kernels (csrc/batch_norm.cu) at every norm
+    shape of a fundus and a prostate step (tools/batch_norm_study.py): the
+    forward and backward against the float64 plain version (within
+    BN_TOL of each result's largest magnitude, as the card tests) and two
+    runs bit-equal; the device ms of each kernel (torch.profiler), cuDNN's
+    per-group F.batch_norm + torch.cat forward and backward (`library_ms`),
+    the plain version's, and the bound (5 float32 passes, counts.norm_bytes's
+    arithmetic); then each step's sums.  Returns {config: sums}."""
+    from ramdsir_tpu_torch.ops import batch_norm as bn
+    from tools import batch_norm_study as study
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for config, path in study.CONFIGS.items():
+        with open(path) as f:
+            norms = study.step_norms(json.load(f))
+        sums = dict.fromkeys(("fwd_ms", "bwd_ms", "library_ms", "plain_ms", "bound_ms"), 0.0)
+        for (rows, c, side, groups), count in sorted(norms.items()):
+            layout = bn.Layout(groups)
+            x, dy, w, b, rm, rv = study.case_inputs(torch, gen, rows, c, side, groups)
+            entry = {**study.check_case(torch, bn, x, dy, layout, w, b, rm, rv),
+                     **study.time_case(torch, bn, x, dy, layout, w, b, rm, rv)}
+            entry.update(library_ms=entry.pop("library_fwd_ms") + entry.pop("library_bwd_ms"),
+                         bound_ms=1e3 * 5 * 4 * x.numel() / bw, vector_path=bn._plan_for(x, layout).vec)
+            emit("batch_norm", config=config, shape=[rows, c, side, side], groups=[g[0] for g in groups],
+                 per_step=count, **entry)
+            errs = [v for k, v in entry.items() if k.endswith("_err")]
+            if not entry["repeat_equal"] or max(errs) > BN_TOL:
+                raise SystemExit(f"batch_norm at {config} {rows}x{c}x{side}^2: {entry}")
+            for k in sums:
+                sums[k] += count * entry[k]
+            del x, dy
+        sums.update(norms=sum(norms.values()), kernels_ms=sums["fwd_ms"] + sums["bwd_ms"])
+        sums["roofline"] = sums["bound_ms"] / sums["kernels_ms"]
+        emit("batch_norm_summary", config=config, **sums)
+        out[config] = sums
+    torch.cuda.empty_cache()
+    return out
 
 
 def _same_tree(np, x, y):
@@ -2786,12 +2852,12 @@ def timed_call(fn):
     return out, time.perf_counter() - t0
 
 
-def phase_build(ram_mix, upsample, native):
-    """Build K1's and K2/K3's libraries and the two host libraries and, beside
-    them, ask ptxas for each kernel's registers and spills (four nvcc and two
-    g++ processes, started together)."""
+def phase_build(ram_mix, upsample, batch_norm, native):
+    """Build K1's, K2/K3's and the batch norm's libraries and the two host
+    libraries and, beside them, ask ptxas for each kernel's registers and
+    spills (six nvcc and two g++ processes, started together)."""
     t0 = time.perf_counter()
-    sources = {"ram_mix": ram_mix.SOURCE, "upsample2x": upsample.SOURCE}
+    sources = {"ram_mix": ram_mix.SOURCE, "upsample2x": upsample.SOURCE, "batch_norm": batch_norm.SOURCE}
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(4) as pool:
         ptxas = {
             name: subprocess.Popen(
@@ -2805,12 +2871,14 @@ def phase_build(ram_mix, upsample, native):
             builds = {
                 "k1": pool.submit(timed_call, ram_mix.build_library),
                 "k2": pool.submit(timed_call, upsample.build_library),
+                "bn": pool.submit(timed_call, batch_norm.build_library),
                 "host": pool.submit(timed_call, native.build_library),
                 "png": pool.submit(timed_call, lambda: native.build_library(native.PNG_SOURCE)),
             }
             done = {k: f.result() for k, f in builds.items()}
             ram_mix._library()
             upsample._library()
+            batch_norm._library()
             native.library()
             native.png_library()
         finally:
@@ -2819,9 +2887,11 @@ def phase_build(ram_mix, upsample, native):
     info, kernel = {}, None
     for ln in ptxas_out.splitlines():
         if "Compiling entry function" in ln:
-            found = re.search(r"(mix_[a-z_]+?_kernel|upsample2x_(?:backward|forward)_kernel)", ln)
+            found = re.search(r"(mix_[a-z_]+?_kernel|upsample2x_(?:backward|forward)_kernel|ramdsir_batch_norm_[a-z_]+_kernel)", ln)
             kernel = found.group(0) if found else ln.strip()
-            if kernel.startswith("mix_"):
+            if kernel.startswith("ramdsir_batch_norm"):  # <V>: 4 floats (16-byte) or 1 float a vector
+                kernel += "<vector>" if "ILi4E" in ln else "<scalar>"
+            elif kernel.startswith("mix_"):
                 kernel += "<full>" if "ILb1E" in ln else "<delta>" if "ILb0ELb1E" in ln else "<band>" if "ILb0ELb0E" in ln else ""
             elif found:  # <dtype, V, vector path>
                 kernel += ("<bfloat16" if "bfloat16" in ln else "<float32") + (", vector>" if "Lb1E" in ln else ", scalar>")
@@ -2829,6 +2899,7 @@ def phase_build(ram_mix, upsample, native):
             info.setdefault(kernel, []).append(ln.split(":", 1)[-1].strip())
     emit("build", library=os.path.relpath(done["k1"][0], REPO), seconds=time.perf_counter() - t0,
          k1_seconds=done["k1"][1], k2_library=os.path.relpath(done["k2"][0], REPO), k2_seconds=done["k2"][1],
+         bn_library=os.path.relpath(done["bn"][0], REPO), bn_seconds=done["bn"][1],
          nvcc_flags=list(ram_mix.NVCC_FLAGS), ptxas=info, host_library=os.path.relpath(done["host"][0], REPO),
          host_library_seconds=done["host"][1], png_library=os.path.relpath(done["png"][0], REPO),
          png_library_seconds=done["png"][1], host_flags=[native.CXX, *native.CXX_FLAGS])
@@ -2900,12 +2971,14 @@ def run_phases(torch, card, name, bw):
         prostate_arrays,
         prostate_volumes,
     )
+    from ramdsir_tpu_torch.ops import batch_norm
     from ramdsir_tpu_torch.ops import ram as tram
     from ramdsir_tpu_torch.ops import ram_mix, upsample
 
-    phase_build(ram_mix, upsample, native)
+    phase_build(ram_mix, upsample, batch_norm, native)
     phase_cuda_tests()
     kernels = phase_kernel(torch, tram, ram_mix, bw)
+    bn_sums = phase_batch_norm(torch, bw)
     phase_ram_oracle(torch, tram, np)
 
     t0 = time.perf_counter()
@@ -3007,6 +3080,16 @@ def run_phases(torch, card, name, bw):
             "replaces": REPLACES_K2, "launches": det_runs["fundus"][launches]["deterministic"] // 8,
             **{k: big[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms",
                                    "library_kernel_ms")},
+        })
+    # the batch norm: a step's norms summed, launches per step from the
+    # float32 main path and prostate runs (4 kernels a norm a step)
+    for config, run in (("fundus", runs["default"]), ("prostate", prostate_run)):
+        sums = bn_sums[config]
+        line["kernels"].append({
+            "name": f"batch_norm[{config} step: {sums['norms']} norms]", "route": "cuda",
+            "source": "ramdsir_tpu_torch/csrc/batch_norm.cu", "replaces": None, "launches": run["bn_launches"],
+            "ms": sums["kernels_ms"], "plain_ms": sums["plain_ms"], "bound_ms": sums["bound_ms"], "bound_by": "bytes",
+            "library_ms": sums["library_ms"], "roofline": sums["roofline"],
         })
     print(card, flush=True)
     print(json.dumps(line), flush=True)

@@ -16,6 +16,14 @@ forwards.
 n_valid: only the first n_valid rows (of each half under dual) are real;
 statistics come from them alone, every row is normalised.
 
+In float32 training outside a process group, BatchNorm (both halves under
+dual) and segment-mode DomainSpecificBatchNorm (each domain one contiguous
+block of rows with a real row) make one call of
+`ops.batch_norm.grouped_batch_norm`, a group a half or a domain: on the card
+its hand-written kernels (`csrc/batch_norm.cu`), one output and no
+torch.cat; on the CPU its plain version.  Any other DSBN labelling takes the
+per-domain loop.
+
 `batch_statistics(*modules)`: within it, every BatchNorm of the modules
 normalises with the batch's own statistics (from the first n_valid rows)
 whatever its train flag, and updates no running statistic: the eval CLIs'
@@ -23,14 +31,14 @@ BN adaptation, which leaves the modules as it found them.  These statistics
 are summed in float64 (`_adapted_norm`): a prostate window batch holds 1.2 M
 values a channel, and float32 sums of that many put the card's and the
 CPU's probabilities further apart than eval's 1e-4 parity bound (zero-padded
-rows widen the spread); the training step keeps the fused float32 kernel.
+rows widen the spread); the training step keeps its float32 statistics.
 
 Under bfloat16 activations (`--compute_dtype bfloat16`) the statistics are
 computed in float32 from the bfloat16 values, weight, bias and running
 statistics stay float32, and the output is bfloat16, as in the JAX package
 (`ramdsir_tpu/models/norm.py:76-137`).  The normalisation then follows JAX's
 order, rounding four times ((x - mean), * inv, * scale, + bias;
-`_low_precision_norm`): the fused float32 kernel rounds once, and a
+`_low_precision_norm`): a fused kernel rounds once, and a
 one-rounding bfloat16 forward lies further from JAX's bfloat16 forward than
 that lies from float32 (tests/test_torch_port_bf16.py).
 
@@ -63,6 +71,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ramdsir_tpu_torch.ops.batch_norm import MAX_GROUPS, Layout, grouped_batch_norm, halves, update_running
 from ramdsir_tpu_torch.parallel.distributed import in_group
 from ramdsir_tpu_torch.parallel.mesh import all_reduce_sum
 
@@ -79,37 +88,21 @@ def _train_norm(
     eps: float,
     n_stats: Optional[int] = None,
 ) -> torch.Tensor:
-    """Train-mode BN of x (N, C, H, W) with statistics from x[:n_stats];
-    updates the running statistics in place unless they are None."""
+    """Train-mode BN of a bfloat16 (or other non-float32) x (N, C, H, W)
+    with float32 statistics from x[:n_stats]; updates the running
+    statistics in place unless they are None.  float32 goes through
+    `ops.batch_norm.grouped_batch_norm`."""
     full = n_stats is None or n_stats >= x.shape[0]
     real = x if full else x[:n_stats]
-    if x.dtype != torch.float32:
-        # the statistics need their own gradient only when they come from a
-        # part of the rows; the full case's backward accounts for them
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not full):
-            mean, var = _low_precision_stats(real)
-        _update_running(running_mean, running_var, mean, var, real, momentum)
-        inv = torch.rsqrt(var + eps)
-        if full:
-            return _LowPrecisionBatchNorm.apply(x, weight, bias, mean, inv, eps)
-        return _low_precision_norm(x, weight, bias, mean, inv)
+    # the statistics need their own gradient only when they come from a
+    # part of the rows; the full case's backward accounts for them
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not full):
+        mean, var = _low_precision_stats(real)
+    update_running(running_mean, running_var, mean, var, real.numel() / real.shape[1], momentum)
+    inv = torch.rsqrt(var + eps)
     if full:
-        return F.batch_norm(x, running_mean, running_var, weight, bias, True, momentum, eps)
-    var, mean = torch.var_mean(real, dim=(0, 2, 3), correction=0)
-    _update_running(running_mean, running_var, mean, var, real, momentum)
-    scale = weight * torch.rsqrt(var + eps)
-    return (x - mean[None, :, None, None]) * scale[None, :, None, None] + bias[None, :, None, None]
-
-
-def _update_running(running_mean, running_var, mean, var, real, momentum) -> None:
-    """new = (1-m)*old + m*batch, the variance unbiased over real's values
-    a channel; nothing when the running statistics are None."""
-    if running_mean is None:
-        return
-    n = real.numel() / real.shape[1]
-    with torch.no_grad():
-        running_mean.mul_(1.0 - momentum).add_(mean, alpha=momentum)
-        running_var.mul_(1.0 - momentum).add_(var * (n / max(n - 1.0, 1.0)), alpha=momentum)
+        return _LowPrecisionBatchNorm.apply(x, weight, bias, mean, inv, eps)
+    return _low_precision_norm(x, weight, bias, mean, inv)
 
 
 def _sums(x: torch.Tensor, dims) -> tuple:
@@ -135,7 +128,7 @@ def _global_moments(s1: torch.Tensor, s2: torch.Tensor, count: torch.Tensor):
 
 
 def _update_running_global(running_mean, running_var, mean, var, n, momentum) -> None:
-    """_update_running with the group's count n (a tensor)."""
+    """`update_running` with the group's count n (a tensor)."""
     with torch.no_grad():
         unbiased = var * (n / torch.clamp(n - 1.0, min=1.0)).float()
         running_mean.mul_(1.0 - momentum).add_(mean, alpha=momentum)
@@ -278,6 +271,11 @@ class BatchNorm(nn.Module):
             args = (self.weight, self.bias, *running, self.momentum, self.eps)
             if in_group():
                 return _sync_train_norm(x, *args, n_valid, 2 if dual else 1)
+            if x.dtype == torch.float32:
+                parts = 2 if dual else 1
+                layout = halves(x.shape[0] // parts, parts, n_valid)
+                return grouped_batch_norm(x.contiguous(), layout, [self.weight], [self.bias], [running[0]],
+                                          [running[1]], self.momentum, self.eps)
             norm = lambda h: _train_norm(h, *args, n_valid)
         if dual:
             return torch.cat([norm(h) for h in x.chunk(2)])
@@ -383,6 +381,18 @@ class DomainSpecificBatchNorm(nn.Module):
         n_real = x.shape[0] if n_valid is None else n_valid
         if self.training and in_group() and not self.bns[0].batch_stats_only:
             return self._sync_segments(x, labels, n_real)
+        train32 = self.training and x.dtype == torch.float32 and not self.bns[0].batch_stats_only
+        segments = _segments(labels, n_real) if train32 else None
+        if segments is not None:
+            layout, domains = segments
+            bns = [self.bns[int(d)] for d in domains]
+            running = [(bn.running_mean, bn.running_var) for bn in bns]
+            if bns[0].recomputing:  # the update goes to copies, as in BatchNorm
+                running = [(m.clone(), v.clone()) for m, v in running]
+            return grouped_batch_norm(
+                x.contiguous(), layout, [bn.weight for bn in bns], [bn.bias for bn in bns], [r[0] for r in running],
+                [r[1] for r in running], bns[0].momentum, bns[0].eps,
+            )
         order = np.argsort(labels, kind="stable")
         pieces = []
         for d in np.unique(labels):
@@ -436,3 +446,18 @@ class DomainSpecificBatchNorm(nn.Module):
         bias = torch.stack([bn.bias for bn in bns])
         inv = torch.rsqrt(use_var + bns[0].eps)
         return _apply_norm(x, weight[lab], bias[lab], use_mean[lab], inv[lab])
+
+
+def _segments(labels: np.ndarray, n_real: int):
+    """(layout, domains) of a labelling whose domains each hold one
+    contiguous block of rows, and at most MAX_GROUPS of them, each with a
+    real row: a group and a slot a block, in row order; else None."""
+    starts = np.flatnonzero(np.r_[True, labels[1:] != labels[:-1]])
+    domains = labels[starts]
+    if len(np.unique(domains)) != len(domains) or len(domains) > MAX_GROUPS:
+        return None
+    ends = np.r_[starts[1:], len(labels)]
+    groups = tuple((int(e - s), int(min(max(n_real - s, 0), e - s)), i) for i, (s, e) in enumerate(zip(starts, ends)))
+    if any(real == 0 for _, real, _ in groups):
+        return None
+    return Layout(groups), domains

@@ -1,5 +1,7 @@
-"""K1, K2 and K3 on the card against their plain versions, the eval path on
-the card against the CPU, a bfloat16 step through K1, a `.ckpt` round trip
+"""K1, K2 and K3 on the card against their plain versions, the grouped batch
+norm's kernels against their float64 plain version at every norm shape of
+both steps (and a train step's norms counted through graph replays), the
+eval path on the card against the CPU, a bfloat16 step through K1, a `.ckpt` round trip
 of a card state (capturable Adam), deterministic steps that repeat bit for
 bit, two graph windows bit-equal to single steps, a window's replays as
 spans under the profiler, the GN / IN
@@ -813,3 +815,166 @@ def test_ddp_step_on_card_matches_single_process(gen, world, backend):
                 tol = dict(rtol=1e-4, atol=1e-5) if "running" in k else dict(rtol=0, atol=2.5 * lr)
                 assert np.allclose(res["state0"][name][k], w, **tol), f"{name}.{k}"
     assert len({r["step"]["digests"][0] for r in got}) == 1
+
+
+# --- the grouped batch norm (csrc/batch_norm.cu) ----------------------------------------
+
+
+def _bn_step_cases():
+    """(config, (rows, C, side, groups)) of every distinct norm of a fundus
+    and a prostate training step at the benchmark's shapes."""
+    import json
+
+    from tools.batch_norm_study import CONFIGS, step_norms
+
+    out = []
+    for name, path in CONFIGS.items():
+        with open(path) as f:
+            out += [(name, key) for key in sorted(step_norms(json.load(f)))]
+    return out
+
+
+BN_CASES = _bn_step_cases()
+BN_IDS = [f"{c}-{k[0]}x{k[1]}x{k[2]}-{'+'.join(str(g[0]) for g in k[3])}" for c, k in BN_CASES]
+# float32 kernels against the float64 plain version, as a share of each
+# result's largest magnitude: the largest reading over both steps' norms on
+# an H100 was 8.7e-7 (dweight, sums over up to 1.5M values a channel); 5e-6
+# leaves room for other draws and stays far below what a wrong count, a
+# skipped unit or a stale partial gives (0.4 to 1e12)
+BN_TOL = 5e-6
+
+
+@pytest.mark.parametrize("config, key", BN_CASES, ids=BN_IDS)
+def test_batch_norm_kernels_match_plain_at_step_shapes(gen, config, key):
+    """The forward and backward kernels at every norm shape of both steps
+    (dual halves and DSBN domains) against the plain version in float64 on
+    the same inputs: y, dx, dweight, dbias, mean, invstd and the running
+    buffers within BN_TOL; two runs bit for bit."""
+    from ramdsir_tpu_torch.ops import batch_norm as bn
+    from tools.batch_norm_study import case_inputs, check_case
+
+    rows, c, side, groups = key
+    x, dy, w, b, rm, rv = case_inputs(torch, gen, rows, c, side, groups)
+    res = check_case(torch, bn, x, dy, bn.Layout(groups), w, b, rm, rv)
+    assert res.pop("repeat_equal")
+    assert max(res.values()) <= BN_TOL, res
+
+
+@pytest.mark.parametrize("shape, offset", [((7, 5, 6, 5), 0), ((6, 8, 8, 8), 1), ((6, 8, 8, 8), 0)],
+                         ids=["hw30", "off16", "vec"])
+def test_batch_norm_kernels_scalar_and_vector_paths(gen, shape, offset):
+    """H*W % 4 != 0 and a tensor off 16 bytes take the 1-float path, an
+    aligned one the 16-byte path; each within BN_TOL of the float64 plain
+    version, with n_valid padding rows in each of two groups and a third
+    group of its own slot."""
+    from ramdsir_tpu_torch.ops import batch_norm as bn
+    from tools.batch_norm_study import check_case
+
+    n = shape[0]
+    layout = bn.Layout(((n // 2, n // 2 - 1, 0), (n // 2 - 1, 1, 0), (n - 2 * (n // 2) + 1, 1, 1)))
+    x = _at_offset(torch.randn(shape, generator=gen, device="cuda") * 3 + 1, offset)
+    dy = _at_offset(torch.randn(shape, generator=gen, device="cuda"), offset)
+    assert bn._plan_for(x, layout, dy).vec == (shape[2] * shape[3] % 4 == 0 and offset == 0)
+    c = shape[1]
+    w = [torch.rand(c, generator=gen, device="cuda") + 0.5 for _ in range(2)]
+    b = [torch.randn(c, generator=gen, device="cuda") for _ in range(2)]
+    rm, rv = [torch.zeros(c, device="cuda")] * 2, [torch.ones(c, device="cuda")] * 2
+    res = check_case(torch, bn, x, dy, layout, w, b, rm, rv)
+    assert res.pop("repeat_equal")
+    assert max(res.values()) <= BN_TOL, res
+
+
+def test_batch_norm_graph_replays_match_eager_and_count(gen):
+    """The module's forward and backward captured in a CUDA graph: each
+    replay bit-equal to the eager call, running statistics included; the
+    kernels' device counter moves by one a kernel at the eager call and at
+    each of 3 replays, the host counts at the eager call and the capture."""
+    from ramdsir_tpu_torch.models.norm import BatchNorm
+    from ramdsir_tpu_torch.ops import batch_norm as bn
+
+    m = BatchNorm(16).cuda().train()
+    x = torch.randn((8, 16, 32, 32), generator=gen, device="cuda", requires_grad=True)
+    dy = torch.randn((8, 16, 32, 32), generator=gen, device="cuda")
+
+    def run():
+        y = m(x, dual=True)
+        return (y, *torch.autograd.grad(y, [x, m.weight, m.bias], dy))
+
+    start = [t.clone() for t in (m.running_mean, m.running_var)]
+    # as train.steps.ScanTrainSteps: the eager calls on the side stream that
+    # then captures (autograd's backward must not touch the default stream)
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()  # the library and the device counter, before the capture
+        torch.cuda.synchronize()
+        for t, s in zip((m.running_mean, m.running_var), start):
+            t.copy_(s)
+        bn.zero_device_launches()
+        host = (bn.launches, bn.backward_launches)
+        eager = [t.clone() for t in run()] + [m.running_mean.clone(), m.running_var.clone()]
+        with torch.cuda.graph(graph, stream=side):
+            outs = run()
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(3):
+        for t, s in zip((m.running_mean, m.running_var), start):
+            t.copy_(s)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(eager, [*outs, m.running_mean, m.running_var]))
+    assert bn.device_launches() == dict.fromkeys(bn.ENTRIES, 4)
+    assert (bn.launches, bn.backward_launches) == (host[0] + 2, host[1] + 2)
+
+
+def test_batch_norm_wrapper_refuses_what_the_kernels_cannot_take(gen):
+    from ramdsir_tpu_torch.ops import batch_norm as bn
+
+    x = torch.randn((4, 3, 8, 8), generator=gen, device="cuda")
+    w, b = [torch.ones(3, device="cuda")], [torch.zeros(3, device="cuda")]
+    layout = bn.halves(4, 1)
+    run = lambda t, w=w: bn.grouped_batch_norm(t, layout, w, b, [None], [None], 0.1, 1e-5)
+    with pytest.raises(TypeError, match="float32 tensors only"):
+        run(x.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="NCHW contiguous"):
+        run(x.contiguous(memory_format=torch.channels_last))
+    with pytest.raises(ValueError, match="NCHW contiguous"):
+        run(x.transpose(2, 3))
+    with pytest.raises(ValueError, match="weights, biases and running buffers"):
+        run(x, [torch.ones(3)])
+    with pytest.raises(ValueError, match="1 to 8 groups"):
+        bn.grouped_batch_norm(x.repeat(3, 1, 1, 1), bn.halves(1, 12), w, b, [None], [None], 0.1, 1e-5)
+
+
+def test_train_step_runs_every_norm_through_the_kernels(gen):
+    """Two graph windows of 3 fundus steps at 64^2 (2 eager steps, the
+    capture and 4 replays): each of the four kernels runs once for each of
+    the step's 38 norms (26 dual BatchNorms, 12 segment DSBNs) every step,
+    as the kernels count themselves on the card."""
+    from ramdsir_tpu_torch.config import TrainConfig
+    from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
+    from ramdsir_tpu_torch.data.synthetic import fundus_arrays
+    from ramdsir_tpu_torch.ops import batch_norm as bn
+    from ramdsir_tpu_torch.train.state import init_state
+    from ramdsir_tpu_torch.train.steps import make_train_step
+
+    cfg = TrainConfig(dataset="fundus", domain_idxs=(1, 2, 3), test_domain_idx=0, ram=True, rec=True,
+                      is_out_domain=True, consistency=True, consistency_type="kd", image_size=64,
+                      device="cuda").resolve()
+    pipe = DeviceFundusPipeline.from_arrays(
+        fundus_arrays(per_domain_train=8, size=64), cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx,
+        is_out_domain=True, seed=0, precompute_donor_amp=cfg.ram_precompute_donor_amp, device="cuda")
+    plans = [pipe.epoch_plan() for _ in range(6)]
+    plan = {k: np.concatenate([p[k] for p in plans])[:6] for k in plans[0]}
+    state = init_state(cfg, torch.Generator().manual_seed(0), "cuda")
+    window = make_train_step(cfg, 20, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data,
+                             scan=True, window=3)
+    torch.cuda.synchronize()
+    bn.zero_device_launches()
+    host = bn.launches
+    g = torch.Generator().manual_seed(1)
+    for i in (0, 3):
+        window(state, {k: v[i:i + 3] for k, v in plan.items()}, g)
+    torch.cuda.synchronize()
+    assert window.graphed() and window.replays == 4
+    assert bn.device_launches() == dict.fromkeys(bn.ENTRIES, 6 * 38)
+    assert bn.launches - host == 3 * 38  # 2 eager steps and the capture
