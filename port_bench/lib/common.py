@@ -1,28 +1,43 @@
-"""What the cell runners share: the port's configuration from a
-configuration file, its weights from the benchmark's, device helpers and
-the comparison arithmetic."""
+"""What the cell runners share: the port's configuration from a family's
+fields and a configuration file's `program` options, its weights from the
+benchmark's, device helpers and the comparison arithmetic."""
 from __future__ import annotations
 
+import dataclasses
 import statistics
 from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from port_bench.lib.spec import RunFailed
 
-def train_config(c: Mapping, device: str, save_path: str, data_root: str = "unused"):
-    """The port's TrainConfig for configuration file `c`, one process."""
+
+def port_config(c: Mapping, fields: Mapping):
+    """The port's TrainConfig from a family's `fields` (`families/<reference>.py`'s
+    `program_config`) and, on top, configuration file `c`'s `program`
+    object, each key a TrainConfig field passed as given.  The run fails on
+    a key that names no field or that the family already sets, and on a
+    TrainConfig attribute that differs from the file's top-level key of the
+    same name (`batch_size_list`, which `global_batch` changes, included):
+    the counts and the reference read the file."""
     from ramdsir_tpu_torch.config import TrainConfig
 
-    return TrainConfig(
-        data_root=data_root, dataset=c["dataset"], lr=c["lr"], epochs=c["epochs"],
-        domain_idxs=tuple(c["domain_idxs"]), test_domain_idx=c["test_domain_idx"],
-        in_channels=c["in_channels"], num_classes=c["num_classes"], lambda_rec=c["lambda_rec"],
-        ram=c["ram"], rec=c["rec"], is_out_domain=c["is_out_domain"], consistency=c["consistency"],
-        consistency_type=c["consistency_type"], image_size=c["image_size"], compute_dtype=c["compute_dtype"],
-        test_batch_size=c["test_batch_size"], log_images_every=c["log_images_every"], num_devices=1,
-        save_path=save_path, device=device,
-    )
+    program = dict(c.get("program") or {})
+    known = {f.name for f in dataclasses.fields(TrainConfig)}
+    for k in program:
+        if k not in known:
+            raise RunFailed(f"the configuration's program option {k!r} names no field of the port's TrainConfig")
+        if k in fields:
+            raise RunFailed(f"the configuration's program option {k!r} is a field its model family sets")
+    cfg = TrainConfig(**dict(fields, **program))
+    for k, want in c.items():
+        if k == "program" or not hasattr(cfg, k) or callable(getattr(cfg, k)):
+            continue
+        got = getattr(cfg, k)
+        if (list(got) if isinstance(got, tuple) else got) != want:
+            raise RunFailed(f"the port's TrainConfig has {k} = {got!r} where the configuration file states {want!r}")
+    return cfg
 
 
 def load_weights(models: Mapping[str, torch.nn.Module], weights: Mapping[str, torch.Tensor], strict=True) -> None:

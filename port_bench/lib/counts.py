@@ -1,7 +1,10 @@
-"""The work of one training step, counted from the configuration's shapes
-(the yardstick's own arithmetic; nothing is read from the program):
-convolution FLOPs, and the least bytes that the normalisations, the x2
-bilinear upsamples and the RAM amplitude mix (K1) must move.
+"""The work of one training step of the RAM-DSIR family
+(`families/ramdsir.step_counts` returns `step_counts`), counted from the
+configuration's shapes (the yardstick's own arithmetic; nothing is read
+from the program): `flops`, the family's model FLOPs (for ramdsir every
+convolution, forward and backward), and the least bytes that the
+normalisations, the x2 bilinear upsamples and the RAM amplitude mix (K1)
+must move.
 
 Rows: the encoder and the seg decoder run on the clean and the RAM half
 (2B rows), the restoration decoder on the RAM half's bottleneck (B rows).

@@ -136,7 +136,7 @@ def _run(ctx, c, traffic, fundus, weights, host_weights, root, inputs, trained_s
     if torch.device(ctx.device).type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(ctx.device)
-    cfg = common.train_config(c, str(ctx.device), os.path.join(root, "run"), data_root=root)
+    cfg = ctx.family.program_config(c, str(ctx.device), os.path.join(root, "run"), data_root=root)
     state = init_state(cfg, torch.Generator().manual_seed(ctx.seed), ctx.device)
     common.load_weights(state.models, weights, strict=False)
     del weights

@@ -1,6 +1,8 @@
-"""One run of one cell: look up the cell, run its traffic kind's generator
-(`lib/<kind>_cell.py`, found by the kind's name: `lib.train_cell`,
-`lib.eval_cell`), read the metrics the cell reports,
+"""One run of one cell: look up the cell and its configuration's model
+family (`families/<reference>.py`, found by the configuration's
+`reference` name), run its traffic kind's generator (`lib/<kind>_cell.py`,
+found by the kind's name: `lib.train_cell`, `lib.eval_cell`), read the
+metrics the cell reports,
 check that no JAX module was loaded, and print the result line.
 
 Standard output's last line is one JSON object: correct, attempted, failed,
@@ -20,16 +22,9 @@ import tempfile
 from typing import Any, Dict, Optional
 
 from port_bench.lib import spec
+from port_bench.lib.spec import RunFailed
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "ramdsir_tpu")
-
-
-class RunFailed(SystemExit):
-    """A run that prints no result: the message on standard error, exit 2."""
-
-    def __init__(self, message: str):
-        print(message, file=sys.stderr, flush=True)
-        super().__init__(2)
 
 
 def forbidden_modules(modules=None) -> list:
@@ -53,6 +48,7 @@ class Context:
     t0: float
     workdir: str
     reference: Any
+    family: Any
     cache_dir: Optional[str] = None
 
 
@@ -76,7 +72,19 @@ def context(bench: Dict, workload: str, seed: int, seconds: float, trace: bool, 
     cfg.setdefault("name", w["config"])
     ref = importlib.import_module(f"port_bench.reference.{cfg['reference']}")
     return Context(workload, cfg, spec.traffic(w["traffic"], pkg), seed, seconds, trace, device, t0, workdir,
-                   ref, **kw)
+                   ref, family_module(cfg["reference"]), **kw)
+
+
+def family_module(name: str):
+    """The model family of the configurations whose `reference` is `name`:
+    the module port_bench/families/<name>.py of the `port_bench` package on
+    the path (`families/ramdsir.py` says what it holds)."""
+    try:
+        return importlib.import_module(f"port_bench.families.{name}")
+    except ModuleNotFoundError as e:
+        if e.name != f"port_bench.families.{name}":
+            raise
+        raise RunFailed(f"no model family for the configuration's reference {name!r}: port_bench/families/{name}.py")
 
 
 def kind_module(kind: str):

@@ -3,7 +3,14 @@
 BENCHMARK.json (at the checkout's root) names each cell's configuration and
 traffic mix and each metric; the files behind the names:
 
-  port_bench/configs/<config>.json          sizes, flags, source, precision
+  port_bench/configs/<config>.json          sizes, flags, source, precision;
+                                            "reference" names its family,
+                                            "program" holds TrainConfig
+                                            fields passed as given
+  port_bench/families/<reference>.py        the model family: the port's
+                                            TrainConfig, data, draws and
+                                            counts (`families/ramdsir.py`)
+  port_bench/reference/<reference>.py       the family's plain reference
   port_bench/traffic/<mix>.json             the mix's parameters ("kind"
                                             picks the general generator)
   port_bench/lib/<kind>_cell.py             a kind's generator: run(ctx)
@@ -12,7 +19,8 @@ traffic mix and each metric; the files behind the names:
   port_bench/metrics/<metric>.kernels/*.txt kernel name patterns, one file
                                             an implementation
 
-Adding a cell, a mix or a metric adds files and entries; no file is edited.
+Adding a cell, a mix, a metric or a model family adds files and entries; no
+file is edited.
 """
 from __future__ import annotations
 
@@ -21,10 +29,19 @@ import glob
 import importlib.util
 import json
 import os
+import sys
 from typing import Any, Dict, List, Mapping, Optional
 
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(PKG)
+
+
+class RunFailed(SystemExit):
+    """A run that prints no result: the message on standard error, exit 2."""
+
+    def __init__(self, message: str):
+        print(message, file=sys.stderr, flush=True)
+        super().__init__(2)
 
 
 def load_json(path: str) -> Any:
@@ -96,7 +113,7 @@ class Record:
     kind: the traffic's kind ("train", "eval"); cfg, traffic: the files'
     contents; host: host-clock readings (setup_s, window_s, and per kind
     steps, images, passes); peak_reserved_bytes; counts: the per-step work
-    (`lib.counts.step_counts`, train); timing: the eval passes' phases
+    (the family's `step_counts`, train); timing: the eval passes' phases
     summed (the program's `res.timing`); trace: the traced window's
     `lib.trace.Trace` (None without --trace 1); peaks: the card's
     published peaks (None for an unknown card)."""

@@ -1,5 +1,12 @@
 """The training cells: the port's window runner driven as `fit` drives it.
 
+Everything of the model is the configuration's family's
+(`families/<reference>.py`): the port's TrainConfig, with the file's
+`program` options, the train stack, each step's draws, the reference's
+view of the data and the work a step counts.  As in `fit`, set-up, the
+compared steps, the warm-up and the window run inside the program's
+`train.loop.deterministic_mode(cfg.deterministic)`.
+
 Set-up builds one training state from the seed (the benchmark's data and
 weights), the device pipeline over the data and the window step
 `train.steps.make_train_step(cfg, ..., scan=True, window=W)`, W from
@@ -41,35 +48,10 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from port_bench.lib import common, counts, synth
+from port_bench.lib import common, synth
 from port_bench.lib.trace import traced
 
 WINDOW_SPAN = "port_bench.window"
-
-
-def step_draws(gen: torch.Generator, b: int, crop: bool) -> Dict[str, torch.Tensor]:
-    """One step's draws in the order the program draws them (a frozen copy
-    of `train.steps.sample_step_draws`): the scale-crop's apply, factors
-    and offsets, then the RAM ratios randint(1, 10) / 10."""
-    d = {}
-    if crop:
-        d["crop_apply"] = torch.rand(b, generator=gen) < 0.5
-        d["crop_u"] = 1.0 + 0.5 * torch.rand(b, 2, generator=gen)
-        d["crop_off"] = torch.rand(b, 2, generator=gen)
-    d["ratio"] = torch.randint(1, 11, (b,), generator=gen).float() / 10.0
-    return d
-
-
-def make_data(c: Mapping, seed: int, device) -> Dict[str, np.ndarray]:
-    """The train stack on the host, drawn on `device`: images, masks and the
-    rows of each source domain (`sizes`)."""
-    s = c["image_size"]
-    sizes = [int(n) for n in c["train_per_domain"]]
-    if c["dataset"] == "fundus":
-        images, masks = synth.fundus_pairs(seed, sum(sizes), s, device)
-    else:
-        images, masks = synth.prostate_slices(seed, sum(sizes), s, device)
-    return {"images": images, "masks": masks, "sizes": sizes}
 
 
 def make_pipeline(c: Mapping, cfg, data: Mapping, seed: int, device):
@@ -93,9 +75,10 @@ def make_pipeline(c: Mapping, cfg, data: Mapping, seed: int, device):
 
 
 class WindowLoop:
-    """The window runner and the loop's state around it."""
+    """The window runner and the loop's state around it; cfg: the port's
+    TrainConfig (the family's `program_config`)."""
 
-    def __init__(self, c: Mapping, seed: int, device, workdir: str, weights, data):
+    def __init__(self, c: Mapping, cfg, seed: int, device, weights, data):
         from ramdsir_tpu_torch.train.loop import scan_window_size
         from ramdsir_tpu_torch.train.state import init_state
         from ramdsir_tpu_torch.train.steps import make_train_step
@@ -103,7 +86,7 @@ class WindowLoop:
         from ramdsir_tpu_torch.utils.profiler import StepTimer
 
         self.device = torch.device(device)
-        self.cfg = common.train_config(c, str(device), os.path.join(workdir, "run"))
+        self.cfg = cfg
         self.pipeline = make_pipeline(c, self.cfg, data, seed, device)
         self.state = init_state(self.cfg, torch.Generator().manual_seed(seed), device)
         common.load_weights(self.state.models, weights)
@@ -115,7 +98,7 @@ class WindowLoop:
         self.B = sum(self.pipeline.batch_sizes)
         self.planner = synth.EpochPlanner(data["sizes"], self.pipeline.batch_sizes, self.cfg.is_out_domain, seed)
         self.generator = torch.Generator().manual_seed(seed)
-        self.writer = MetricsWriter(os.path.join(workdir, "run", "log"))
+        self.writer = MetricsWriter(os.path.join(cfg.save_path, "log"))
         self.ring = DeviceMetricsRing(self.writer, log_interval=self.cfg.log_interval)
         self.vizring = DeviceVizRing()
         self.timer = StepTimer(device=device)
@@ -226,49 +209,53 @@ def compared_steps(loop: WindowLoop, k: int):
 
 def run(ctx) -> Dict:
     """One run of a training cell.  ctx: see `harness.Context`."""
+    from ramdsir_tpu_torch.train.loop import deterministic_mode
+
     c, traffic, seed, device = ctx.cfg, ctx.traffic, ctx.seed, ctx.device
     k = int(traffic["compared_steps"])
     phases = {}
     mark = lambda name: phases.__setitem__(name, time.perf_counter() - ctx.t0)
     mark("start")
-    data = make_data(c, seed, device)
-    mark("data")
-    weights = ctx.reference.make_weights(c, seed, device)
-    if torch.device(device).type == "cuda":
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(device)
-    loop = WindowLoop(c, seed, device, ctx.workdir, weights, data)
-    del weights
-    mark("program")
+    cfg = ctx.family.program_config(c, str(device), os.path.join(ctx.workdir, "run"))
+    with deterministic_mode(cfg.deterministic):
+        data = ctx.family.make_data(c, seed, device)
+        mark("data")
+        weights = ctx.reference.make_weights(c, seed, device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        loop = WindowLoop(c, cfg, seed, device, weights, data)
+        del weights
+        mark("program")
 
-    draw_state = loop.generator.get_state()
-    loop.plan, loop.pos = loop.planner.epoch(), 0
-    plan0 = {kk: v[:k].copy() for kk, v in loop.plan.items()}
-    prog_losses, prog_states = compared_steps(loop, k)
-    mark("compared_steps")
+        draw_state = loop.generator.get_state()
+        loop.plan, loop.pos = loop.planner.epoch(), 0
+        plan0 = {kk: v[:k].copy() for kk, v in loop.plan.items()}
+        prog_losses, prog_states = compared_steps(loop, k)
+        mark("compared_steps")
 
-    warm = int(traffic["warmup_steps"])
-    common.sync(device)
-    t = time.perf_counter()
-    w, _ = loop.window(warm)
-    common.sync(device)
-    step_s = (time.perf_counter() - t) / w
-    setup_s = time.perf_counter() - ctx.t0
-    mark("warmup")
+        warm = int(traffic["warmup_steps"])
+        common.sync(device)
+        t = time.perf_counter()
+        w, _ = loop.window(warm)
+        common.sync(device)
+        step_s = (time.perf_counter() - t) / w
+        setup_s = time.perf_counter() - ctx.t0
+        mark("warmup")
 
-    trace_out = []
-    if ctx.trace:
-        with traced(WINDOW_SPAN, trace_out):
-            steps, wall = loop.timed(float(traffic["trace_seconds"]), step_s)
-    else:
-        steps, wall = loop.timed(ctx.seconds, step_s)
-    peak = torch.cuda.max_memory_reserved(device) if torch.device(device).type == "cuda" else 0
-    record_counts = counts.step_counts(c)
-    host = {"setup_s": setup_s, "window_s": wall, "steps": steps, "images": steps * loop.B}
-    total_iters, b, w_size = loop.total_iters, loop.B, loop.W
-    loop.free()
-    del loop
-    gc.collect()
+        trace_out = []
+        if ctx.trace:
+            with traced(WINDOW_SPAN, trace_out):
+                steps, wall = loop.timed(float(traffic["trace_seconds"]), step_s)
+        else:
+            steps, wall = loop.timed(ctx.seconds, step_s)
+        peak = torch.cuda.max_memory_reserved(device) if torch.device(device).type == "cuda" else 0
+        host = {"setup_s": setup_s, "window_s": wall, "steps": steps, "images": steps * loop.B}
+        total_iters, b, w_size = loop.total_iters, loop.B, loop.W
+        loop.free()
+        del loop
+        gc.collect()
+    record_counts = ctx.family.step_counts(c)
 
     check = compare(ctx, c, data, prog_losses, prog_states, plan0, draw_state, b, total_iters)
     extra = {"setup_phases_s": phases, "W": w_size, **check.pop("record")}
@@ -290,28 +277,21 @@ def compare(ctx, c, data, losses, states, plan0, draw_state, b, total_iters) -> 
     return numbers(losses, ordered, *follow(ctx, c, data, ordered, plan0, draw_state, b, total_iters))
 
 
-def reference_data(c: Mapping, data: Mapping) -> Dict[str, torch.Tensor]:
-    out = {"images": torch.from_numpy(data["images"]), "masks": torch.from_numpy(data["masks"])}
-    if c["dataset"] == "fundus":
-        out["donors"] = out["images"]
-    return out
-
-
-def plan_draws(c: Mapping, plan0: Mapping, draw_state, b: int):
+def plan_draws(ctx, plan0: Mapping, draw_state, b: int):
     """Each compared step's (img_idx, donor_idx, draws)."""
     gen = torch.Generator()
     gen.set_state(draw_state)
     k = len(plan0["img_idx"])
     return [(np.asarray(plan0["img_idx"][i]), np.asarray(plan0["donor_idx"][i]),
-             step_draws(gen, b, c["dataset"] == "fundus")) for i in range(k)]
+             ctx.family.step_draws(ctx.cfg, gen, b)) for i in range(k)]
 
 
 def follow(ctx, c, data, states, plan0, draw_state, b, total_iters):
     """The plain reference's steps, step i from states[i - 1] (the state
     before it): (losses, gradients, tensors after each step)."""
-    ref_data = reference_data(c, data)
+    ref_data = ctx.family.reference_data(c, data)
     losses, grads, after = [], [], []
-    for i, (img_idx, donor_idx, draws) in enumerate(plan_draws(c, plan0, draw_state, b)):
+    for i, (img_idx, donor_idx, draws) in enumerate(plan_draws(ctx, plan0, draw_state, b)):
         st = states[i]
         trainer = ctx.reference.ReferenceTrainer(c, st["tensors"], ref_data, total_iters, device=ctx.device,
                                                  moments=(st["exp_avg"], st["exp_avg_sq"]), steps=i)
@@ -329,10 +309,10 @@ def chain(ctx, c, data, weights, plan0, draw_state, b, total_iters, dtype=torch.
     half of every batch replaced by the first half (half the rows left out,
     the means over the rest); tf32_convs: the convolutions in TF32, the
     precision the configuration states for the program (a witness)."""
-    trainer = ctx.reference.ReferenceTrainer(c, weights, reference_data(c, data), total_iters, dtype=dtype,
-                                             device=ctx.device, tf32_convs=tf32_convs)
+    trainer = ctx.reference.ReferenceTrainer(c, weights, ctx.family.reference_data(c, data), total_iters,
+                                             dtype=dtype, device=ctx.device, tf32_convs=tf32_convs)
     losses, states = [], [trainer.snapshot()]
-    for img_idx, donor_idx, draws in plan_draws(c, plan0, draw_state, b):
+    for img_idx, donor_idx, draws in plan_draws(ctx, plan0, draw_state, b):
         if half_batch:
             h = b // 2
             img_idx, donor_idx = img_idx.copy(), donor_idx.copy()
@@ -403,7 +383,7 @@ def control(ctx, variant: str) -> Dict:
         raise ValueError(f"unknown control {variant!r}")
     c, seed, device = ctx.cfg, ctx.seed, ctx.device
     k = int(ctx.traffic["compared_steps"])
-    data = make_data(c, seed, device)
+    data = ctx.family.make_data(c, seed, device)
     weights = ctx.reference.make_weights(c, seed, device)
     bsl = list(c["batch_size_list"])
     planner = synth.EpochPlanner(data["sizes"], bsl, c["is_out_domain"], seed)

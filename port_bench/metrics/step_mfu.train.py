@@ -1,6 +1,7 @@
-"""step_mfu.train: model FLOPs of the traced window's steps (every
-convolution forward and backward, `lib.counts.step_flops`) over the
-window's wall time, as a share of the card's dense peak for the
+"""step_mfu.train: model FLOPs of the traced window's steps (the
+configuration's family's `step_counts(c)["flops"]`, `families/<reference>.py`;
+for ramdsir every convolution forward and backward, `lib.counts.step_flops`)
+over the window's wall time, as a share of the card's dense peak for the
 configuration's convolution precision (TF32 for float32)."""
 
 PEAK_KEY = {"float32": "tf32_flops", "bfloat16": "bf16_flops"}

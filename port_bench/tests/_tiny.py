@@ -1,7 +1,7 @@
-"""Contexts of the four cells at a size a CPU test run holds: 32^2 images,
-a few images a domain (an epoch of six steps, as many as the steps
-compared), short windows, three supervised steps for the eval weights
-(cached under the test's directory)."""
+"""Contexts of the benchmark's cells, and of those in KEPT_OUT, at a size a
+CPU test run holds: 32^2 images, a few images a domain (an epoch of six
+steps, as many as the steps compared), short windows, three supervised
+steps for the eval weights (cached under the test's directory)."""
 import importlib
 import time
 
@@ -15,15 +15,26 @@ SMALL = {
 }
 
 
+# cells whose path, traffic and limits the benchmark keeps, tested here, that
+# BENCHMARK.json does not run: fundus.eval's host-clock rate spread too widely
+# between runs to hold any bound the contract allows (PERF.md, section 7)
+KEPT_OUT = {"fundus.eval": {"name": "fundus.eval", "config": "fundus", "traffic": "eval", "chips": 1}}
+
+
+def entry(workload: str):
+    """The cell's BENCHMARK.json entry, or its entry in KEPT_OUT."""
+    return KEPT_OUT.get(workload) or spec.workload(spec.benchmark(), workload)
+
+
 def tiny_context(workload: str, workdir: str, seed: int = 123, trace: bool = False, seconds: float = 0.3, **kw):
     torch.set_num_threads(2)
     bench = spec.benchmark()
-    w = spec.workload(bench, workload)
+    w = entry(workload)
     cfg = dict(spec.config(bench, w["config"]), **SMALL[w["config"]])
     traffic = dict(spec.traffic(w["traffic"]), warmup_steps=2, trace_seconds=0.3, weights_steps=3, weights_images=8)
     ref = importlib.import_module(f"port_bench.reference.{cfg['reference']}")
     return harness.Context(workload, cfg, traffic, seed, seconds, trace, torch.device("cpu"), time.perf_counter(),
-                           workdir, ref, cache_dir=f"{workdir}/cache", **kw)
+                           workdir, ref, harness.family_module(cfg["reference"]), cache_dir=f"{workdir}/cache", **kw)
 
 
 def judged(workload: str, check):

@@ -25,10 +25,18 @@ def _run(code: str, cwd: str = ROOT, env=None):
                           env=env)
 
 
+def _references() -> list:
+    """The `reference` names of the benchmark's configurations: each names a
+    plain reference and a model family."""
+    bench = spec.benchmark()
+    return sorted({spec.config(bench, c["name"])["reference"] for c in bench["configs"]})
+
+
 def test_the_harness_and_the_program_load_no_jax():
+    families = ", ".join(f"port_bench.families.{r}, port_bench.reference.{r}" for r in _references())
     code = ("import sys; sys.path.insert(0, '.');"
             "import port_bench.lib.harness, port_bench.lib.train_cell, port_bench.lib.eval_cell;"
-            "import port_bench.reference.ramdsir, port_bench.tools.readings;"
+            f"import {families}, port_bench.tools.readings;"
             "import ramdsir_tpu_torch.train.loop, ramdsir_tpu_torch.train.steps, ramdsir_tpu_torch.train.evaluate;"
             "from port_bench.lib.harness import forbidden_modules; print(forbidden_modules())")
     out = _run(code)
@@ -37,7 +45,8 @@ def test_the_harness_and_the_program_load_no_jax():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    code = ("import sys; sys.path.insert(0, '.'); import port_bench.reference.ramdsir;"
+    references = ", ".join(f"port_bench.reference.{r}" for r in _references())
+    code = (f"import sys; sys.path.insert(0, '.'); import {references};"
             "print(sorted({m.split('.')[0] for m in sys.modules} & {'ramdsir_tpu', 'ramdsir_tpu_torch', 'jax'}))")
     out = _run(code)
     assert out.returncode == 0, out.stderr

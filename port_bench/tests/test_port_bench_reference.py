@@ -15,10 +15,11 @@ from _tiny import tiny_context
 def test_one_training_step_agrees_with_the_port(workload, tmp_path):
     ctx = tiny_context(workload, str(tmp_path))
     c = ctx.cfg
-    data = train_cell.make_data(c, ctx.seed, "cpu")
+    data = ctx.family.make_data(c, ctx.seed, "cpu")
     weights = ctx.reference.make_weights(c, ctx.seed, "cpu")
     host = {k: v.clone() for k, v in weights.items()}
-    loop = train_cell.WindowLoop(c, ctx.seed, "cpu", str(tmp_path), weights, data)
+    cfg = ctx.family.program_config(c, "cpu", str(tmp_path / "run"))
+    loop = train_cell.WindowLoop(c, cfg, ctx.seed, "cpu", weights, data)
     draw_state = loop.generator.get_state()
     loop.plan, loop.pos = loop.planner.epoch(), 0
     plan = {k: v[:1].copy() for k, v in loop.plan.items()}
