@@ -24,7 +24,9 @@ with the five other domains as sources, each evaluated every epoch):
 weights, RAM in float32).  --resume runs/fundus_t3/final_model.ckpt goes on
 from a full-state checkpoint of the port or of the JAX package.  The
 variants: --norm gn|in, --num_classes 3 (prostate's softmax head), --remat,
---global_batch 48, --trace_dir runs/trace.
+--global_batch 48, --trace_dir runs/trace.  --model transunet_r50_b16 trains
+TransUNet R50-ViT-B/16 in the U-Net's place (models/transunet.py), e.g. at
+--image_size 512 as TransUNet's high-resolution setting.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import dataclasses
 import torch
 
 from ramdsir_tpu_torch.config import TrainConfig
+from ramdsir_tpu_torch.models.transunet import CONFIGS as TRANSUNETS
 from ramdsir_tpu_torch.parallel import distributed
 from ramdsir_tpu_torch.train.loop import fit
 
@@ -86,6 +89,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="split this batch evenly over the source domains in place of the per-target "
                         "tables; without --lr the LR scales by its ratio to the table's batch")
     p.add_argument("--device", type=str, default="cuda", help="torch device, e.g. cuda or cpu")
+    p.add_argument("--model", type=str, default="unet", choices=["unet", *TRANSUNETS],
+                   help="the step's network: RAM-DSIR's U-Net, or TransUNet R50-ViT-B/16 (float32, one process, "
+                        "--image_size a multiple of 16; the restoration decoder stays RAM-DSIR's)")
     return p.parse_args(argv)
 
 
@@ -124,6 +130,7 @@ def main(argv=None):
         scan_window=a.scan_window,
         global_batch=a.global_batch,
         device=a.device,
+        model=a.model,
     )
     if distributed.under_torchrun():
         return _torchrun_rank(cfg, a.max_steps)

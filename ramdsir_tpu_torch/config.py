@@ -95,6 +95,10 @@ class TrainConfig:
     checkpoint_resume: Optional[str] = None
     trace_dir: Optional[str] = None
     device: str = "cuda"  # torch device of the run
+    # the network of the step: "unet" (RAM-DSIR's U-Net, n=16) or a name of
+    # models/transunet.CONFIGS ("transunet_r50_b16", TransUNet R50-ViT-B/16);
+    # the restoration decoder is RAM-DSIR's either way
+    model: str = "unet"
 
     def resolve(self) -> "TrainConfig":
         cfg = dataclasses.replace(self)
@@ -106,6 +110,10 @@ class TrainConfig:
                 cfg.lr = cfg.lr * cfg.global_batch / sum(self._reference_batch_list())
         if cfg.num_classes is None:
             cfg.num_classes = DATASET_NUM_CLASSES[cfg.dataset]
+        if cfg.model != "unet":
+            # s2d_levels is the U-Net's TPU layout: a TransUNet's restoration
+            # decoder runs without it
+            cfg.s2d_levels = 0
         if cfg.ram_use_pallas:
             # the full-spectrum mix consumes the per-step donor images;
             # precomputed banded amplitudes would bypass it

@@ -98,6 +98,7 @@ from ramdsir_tpu_torch.data.fundus import FundusMultiDataset
 from ramdsir_tpu_torch.data.loaders import FusedMultiDomainLoader, ProcessFusedMultiDomainLoader
 from ramdsir_tpu_torch.data.prostate import ProstateMultiDataset
 from ramdsir_tpu_torch.data.transforms import ScaleCropAug
+from ramdsir_tpu_torch.models.transunet import counters as transunet_counters
 from ramdsir_tpu_torch.parallel import distributed
 from ramdsir_tpu_torch.parallel.mesh import replicate_state
 from ramdsir_tpu_torch.train.checkpoint import BestKeeper, load_checkpoint, save_checkpoint
@@ -551,6 +552,8 @@ def _train(cfg: TrainConfig, device, eval_every, max_steps, pipeline, testset, s
     windows = dict(scan_window=scan_w, graph_replays=getattr(train_step, "replays", 0),
                    capture_s=getattr(train_step, "capture_seconds", None),
                    graph_pool_bytes=getattr(train_step, "graph_pool_bytes", None))
+    if cfg.model != "unet":
+        windows.update(transunet_counters(state.models["encoder"]))
     if not is_main:
         torch.distributed.barrier()  # rank 0 has written the run's files
         return dict(steps=step, rank=distributed.rank(), images_per_sec=timer.items_per_sec,

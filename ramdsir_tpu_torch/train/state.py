@@ -24,6 +24,7 @@ import torch
 import torch.nn as nn
 
 from ramdsir_tpu_torch.config import TrainConfig
+from ramdsir_tpu_torch.models import transunet
 from ramdsir_tpu_torch.models.unet import Decoder, Encoder, RecDecoder, init_weights
 from ramdsir_tpu_torch.utils.device import resolve_device
 from ramdsir_tpu_torch.utils.torch_compat import (
@@ -44,19 +45,28 @@ class TrainState:
 
 
 def build_models(cfg: TrainConfig) -> Dict[str, nn.Module]:
-    """Encoder / Decoder / RecDecoder at width n=16 (reference train.py:568-572)."""
-    models: Dict[str, nn.Module] = {
-        "encoder": Encoder(
-            c=cfg.in_channels, norm=cfg.norm, activation=cfg.activation, s2d_levels=cfg.s2d_levels
-        ),
-        "seg_decoder": Decoder(
-            num_classes=cfg.num_classes, norm=cfg.norm, activation=cfg.activation,
-            s2d_levels=cfg.s2d_levels,
-        ),
-    }
+    """Encoder / Decoder / RecDecoder at width n=16 (reference train.py:568-572);
+    with cfg.model a TransUNet (`models/transunet.py`), its encoder and CUP
+    decoder in the first two slots and the RecDecoder at n = hidden / 16,
+    its stages checkpointed under cfg.remat."""
+    if cfg.model != "unet":
+        encoder, decoder, tcfg = transunet.build(cfg.model, cfg.image_size, cfg.num_classes, remat=cfg.remat)
+        models: Dict[str, nn.Module] = {"encoder": encoder, "seg_decoder": decoder}
+        n = tcfg.rec_width
+    else:
+        models = {
+            "encoder": Encoder(
+                c=cfg.in_channels, norm=cfg.norm, activation=cfg.activation, s2d_levels=cfg.s2d_levels
+            ),
+            "seg_decoder": Decoder(
+                num_classes=cfg.num_classes, norm=cfg.norm, activation=cfg.activation,
+                s2d_levels=cfg.s2d_levels,
+            ),
+        }
+        n = 16
     if cfg.rec:
         models["rec_decoder"] = RecDecoder(
-            num_classes=cfg.in_channels, norm="dsbn", activation=cfg.activation,
+            n=n, num_classes=cfg.in_channels, norm="dsbn", activation=cfg.activation,
             num_domains=cfg.num_domains, s2d_levels=cfg.s2d_levels,
         )
     return models
@@ -66,15 +76,16 @@ def init_state(
     cfg: TrainConfig, generator: torch.Generator, device: Union[str, torch.device] = "cuda"
 ) -> TrainState:
     """Models initialised from `generator` (on the CPU, so the weights do not
-    depend on the device), moved to `device`, with Adam over them (capturable
-    on a CUDA device, the module docstring).  Each module is one param
+    depend on the device; a TransUNet's encoder and decoder as TransUNet
+    initialises them, `models.transunet.init_weights`), moved to `device`,
+    with Adam over them (capturable on a CUDA device, the module docstring).  Each module is one param
     group; the train step sets each group's lr every step (poly schedule,
     encoder x0.5 under --rec)."""
     dev = resolve_device(device)
     cfg = cfg.resolve()
     models = build_models(cfg)
-    for m in models.values():
-        init_weights(m, generator)
+    for name, m in models.items():
+        (transunet.init_weights if cfg.model != "unet" and name != "rec_decoder" else init_weights)(m, generator)
         m.to(dev).train()
     capturable = dev.type == "cuda"
     lr = lambda: torch.tensor(cfg.lr, dtype=torch.float32, device=dev) if capturable else cfg.lr

@@ -40,6 +40,16 @@ pipeline, the scale-crop's apply/factor/offset draws) comes from
 `sample_step_draws`, in one place, from one Generator; a caller may pass the
 draws instead (the tests pass the numbers the JAX functions drew).
 
+Models (`TrainConfig.model`): the U-Net, or a TransUNet
+(`models/transunet.py`) in the encoder and seg-decoder slots, the rest of
+the step unchanged.  A TransUNet's dropout takes a seed a row, drawn last
+among the step's draws (`dropout_seed`, so the U-Net's draws are as they
+were) and loaded through `StepInputs` as the others are; the masks are
+hashed from it on the device, so a graph replay drops what an eager step
+would.  Under --remat it checkpoints its own transformer blocks and
+bottleneck units in place of the whole forward.  `check_supported` says
+what it does not run.
+
 Data parallelism (`--num_devices` > 1; `ramdsir_tpu/train/steps.py:69-94`,
 `ramdsir_tpu/parallel/mesh.py`): under a process group (`parallel/`) each
 rank holds per = ceil(B / world) rows of the global batch of B real rows,
@@ -100,6 +110,7 @@ from torch.utils.checkpoint import checkpoint
 from ramdsir_tpu_torch.config import CONSISTENCY_WEIGHT, POLY_POWER, TrainConfig
 from ramdsir_tpu_torch.data.device_pipeline import gather_and_augment, gather_prostate, sample_crop_draws
 from ramdsir_tpu_torch.models.norm import batch_statistics, recomputing
+from ramdsir_tpu_torch.models.transunet import CONFIGS as TRANSUNETS, PATCH
 from ramdsir_tpu_torch.parallel import distributed
 from ramdsir_tpu_torch.parallel.mesh import all_reduce_grads, all_reduce_sum, pad_rows, rank_rows
 from ramdsir_tpu_torch.ops.losses import (
@@ -150,15 +161,41 @@ def check_supported(cfg: TrainConfig) -> None:
     torch_dtype(cfg.compute_dtype)
     if cfg.consistency and cfg.consistency_type not in ("mse", "kd"):
         raise ValueError(f"unknown consistency_type {cfg.consistency_type!r} (use 'mse' or 'kd')")
+    if cfg.model != "unet":
+        check_transunet(cfg, ranks)
+
+
+def check_transunet(cfg: TrainConfig, ranks: int) -> None:
+    """Raise ValueError, naming the option, for what the TransUNet step
+    (`models/transunet.py`) does not run."""
+    name = cfg.model
+    if name not in TRANSUNETS:
+        raise ValueError(f"unknown model {name!r} (use 'unet' or one of {sorted(TRANSUNETS)})")
+    refusals = [
+        (cfg.norm != "bn", f"--norm {cfg.norm}: {name}'s decoder is batch norm (its encoder GroupNorm and LayerNorm)"),
+        (cfg.activation != "relu", f"--activation {cfg.activation}: {name} is ReLU throughout"),
+        (cfg.deterministic, f"--deterministic: {name}'s align_corners=True upsample backward (aten's) and SDPA's "
+                            "memory-efficient backward have no deterministic CUDA path"),
+        (cfg.compute_dtype != "float32" or cfg.predict_dtype != "float32",
+         f"bfloat16: {name} runs in float32 only (no test holds its bfloat16 step)"),
+        (ranks > 1, f"{ranks} ranks: {name}'s dropout masks are the one-process batch's"),
+        (cfg.image_size % PATCH != 0, f"--image_size {cfg.image_size}: {name} takes multiples of {PATCH}"),
+    ]
+    for refused, why in refusals:
+        if refused:
+            raise ValueError(f"model {name} does not run with {why}")
 
 
 def sample_step_draws(
-    generator: torch.Generator, batch: int, device: torch.device, crop: bool = True
+    generator: torch.Generator, batch: int, device: torch.device, crop: bool = True, dropout: bool = False
 ) -> Dict[str, torch.Tensor]:
-    """All of one step's random draws, on `device`: the RAM ratios and, with
-    crop=True, the scale-crop's draws."""
+    """All of one step's random draws, on `device`: the scale-crop's draws
+    (crop=True), the RAM ratios and, with dropout=True (a TransUNet), an
+    int64 dropout seed in [0, 2^31) a row (`models.transunet.keep_mask`)."""
     draws = sample_crop_draws(generator, batch) if crop else {}
     draws["ratio"] = sample_ram_ratios(generator, batch)
+    if dropout:
+        draws["dropout_seed"] = torch.randint(0, 2**31, (batch,), generator=generator, device=generator.device)
     return {k: v.to(device) for k, v in draws.items()}
 
 
@@ -373,6 +410,7 @@ def make_train_step(
     check_supported(cfg)
     is_fundus = cfg.dataset == "fundus"
     binary_head = not is_fundus and cfg.num_classes == 2
+    transunet = cfg.model != "unet"
     dual_bn = cfg.norm == "bn"  # GN and IN are per sample: no per-half statistics
     bsl = list(batch_size_list or cfg.batch_size_list)[: len(cfg.domain_idxs)]
     b_real = sum(bsl)
@@ -444,15 +482,17 @@ def make_train_step(
             return (binary_kd_loss if binary_head else kd_loss)(repr2, repr1, eps=1e-8)
         return (binary_mse_consistency if binary_head else mse_loss)(repr2, repr1)
 
-    def forward(state: TrainState, x: torch.Tensor, dual: bool = False):
-        """(bottleneck, logits) of the encoder and the seg decoder."""
+    def forward(state: TrainState, x: torch.Tensor, dual: bool = False, seed: Optional[torch.Tensor] = None):
+        """(bottleneck, logits) of the encoder and the seg decoder; seed: a
+        TransUNet's dropout seeds, one a row of a half."""
         enc, dec = state.models["encoder"], state.models["seg_decoder"]
+        kw = {} if seed is None else {"dropout_seed": seed}
 
         def run(x):
-            feats = enc(x, dual=dual, n_valid=n_valid)
+            feats = enc(x, dual=dual, n_valid=n_valid, **kw)
             return feats[-1], dec(feats, dual=dual, n_valid=n_valid)
 
-        if not cfg.remat:
+        if not cfg.remat or transunet:  # a TransUNet checkpoints its own stages
             return run(x)
         return checkpoint(
             run, x, use_reentrant=False, preserve_rng_state=False,  # it draws nothing
@@ -490,11 +530,12 @@ def make_train_step(
             # running-stat updates in order (models/norm.py); GN and IN are
             # per sample and need no halves
             half = img.shape[0]
-            last, logits_all = forward(state, torch.cat([img, nchw(img_freq)]).to(compute_dtype), dual=dual_bn)
+            last, logits_all = forward(state, torch.cat([img, nchw(img_freq)]).to(compute_dtype), dual=dual_bn,
+                                       seed=draws.get("dropout_seed"))
             logits1, logits2 = logits_all[:n_local], logits_all[half : half + n_local]
             feats_f_last = last[half:]
         else:
-            logits1 = forward(state, img.to(compute_dtype))[1][:n_local]
+            logits1 = forward(state, img.to(compute_dtype), seed=draws.get("dropout_seed"))[1][:n_local]
 
         pred1, loss_sup1, loss_dice1 = seg_head(logits1, mask)
         loss = loss_sup1 + loss_dice1
@@ -537,6 +578,9 @@ def make_train_step(
     crop = device_data is not None and is_fundus
     draw_keys = ("crop_apply", "crop_u", "crop_off", "ratio") if crop else ("ratio",)
     specs = {"ratio": ((b_real,), torch.float32), "lr": ((), torch.float32)}
+    if transunet:
+        draw_keys += ("dropout_seed",)
+        specs["dropout_seed"] = ((b_real,), torch.long)
     if crop:
         specs.update(crop_apply=((b_real,), torch.bool), crop_u=((b_real, 2), torch.float32),
                      crop_off=((b_real, 2), torch.float32))
@@ -550,7 +594,8 @@ def make_train_step(
         if draws is None:
             if generator is None:
                 raise ValueError("the train step needs a generator or precomputed draws")
-            steps = [sample_step_draws(generator, b_real, torch.device("cpu"), crop=crop) for _ in range(n)]
+            steps = [sample_step_draws(generator, b_real, torch.device("cpu"), crop=crop, dropout=transunet)
+                     for _ in range(n)]
             return {k: torch.stack([d[k] for d in steps]) for k in draw_keys}
         missing = [k for k in draw_keys if k not in draws]
         if missing:

@@ -6,7 +6,11 @@ The JAX trees are nested dicts of numpy arrays, NHWC, conv kernels
 (kh, kw, in, out), norms under flax's auto-named submodules
 (`bn1.BatchNorm_0.scale`, `bn1.GroupNorm_0.scale`, DSBN banks stacked as
 (domains, C); InstanceNorm has no entry).  The torch state dicts are NCHW,
-kernels (out, in, kh, kw), `bn1.weight`, `bn1.bns.{d}.weight`.
+kernels (out, in, kh, kw), `bn1.weight`, `bn1.bns.{d}.weight`.  A TransUNet
+(`models/transunet.py`, which the JAX package lacks) is written the same
+way: dense kernels (in, out), `LayerNorm_0` / `GroupNorm_0` norms, bias-free
+convs without a bias leaf, its position table as the bare leaf
+`position_embeddings`.
 
 Both ways: `jax_params_to_torch` / `load_jax_params` read the JAX trees,
 `torch_to_jax_params` writes them from the modules (the trainer's
@@ -20,13 +24,13 @@ Adam, a float32 tensor on the parameters' card in the capturable one that
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple, Union
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from ramdsir_tpu_torch.models.norm import BatchNorm, DomainSpecificBatchNorm, GroupNorm
+from ramdsir_tpu_torch.models.norm import BatchNorm, DomainSpecificBatchNorm
 
 # flax names norm submodules by class: a path part with one of these
 # prefixes belongs to a norm layer, everything else is a conv
@@ -67,8 +71,8 @@ def flax_module_to_torch_sd(params: Mapping, batch_stats: Mapping) -> Dict[str, 
     sd: Dict[str, np.ndarray] = {}
     for path, arr in _flatten(params).items():
         parts = path.split(".")
-        if parts[-1] == "kernel":  # conv: (kh, kw, in, out) -> (out, in, kh, kw)
-            sd[".".join(parts[:-1]) + ".weight"] = arr.transpose(3, 2, 0, 1)
+        if parts[-1] == "kernel":  # conv: (kh, kw, in, out) -> (out, in, kh, kw); dense: (in, out) -> (out, in)
+            sd[".".join(parts[:-1]) + ".weight"] = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
         elif parts[-1] in ("scale", "bias") and _is_norm_path(parts):
             sd.update(_norm_entries(parts, arr, "weight" if parts[-1] == "scale" else "bias", path))
         else:
@@ -105,12 +109,18 @@ def load_jax_params(models: Union[nn.Module, Mapping[str, nn.Module]], params: M
         module.load_state_dict(sds[name], strict=True)
 
 
-def _layers(module: nn.Module, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], nn.Module]]:
-    """(path, layer) of every conv and every norm with parameters under
-    `module`; a DSBN bank is one layer."""
+_LAYERS = (nn.Conv2d, nn.Linear, BatchNorm, DomainSpecificBatchNorm, nn.GroupNorm, nn.LayerNorm)
+
+
+def _layers(module: nn.Module, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Optional[nn.Module]]]:
+    """(path, layer) of every conv, linear and norm with parameters under
+    `module` (a DSBN bank is one layer), and (path, None) of a parameter
+    held by a module that is no such layer (TransUNet's position table)."""
+    for name, _ in module.named_parameters(recurse=False):
+        yield prefix + (name,), None
     for name, child in module.named_children():
         path = prefix + (name,)
-        if isinstance(child, (nn.Conv2d, BatchNorm, DomainSpecificBatchNorm, GroupNorm)):
+        if isinstance(child, _LAYERS):
             yield path, child
         else:
             yield from _layers(child, path)
@@ -135,9 +145,14 @@ def _module_to_flax(module: nn.Module, values: Mapping[str, np.ndarray]) -> Tupl
     trees: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
     for path, layer in _layers(module):
         key = ".".join(path)
-        if isinstance(layer, nn.Conv2d):  # (out, in, kh, kw) -> (kh, kw, in, out)
-            _put(trees["params"], path + ("kernel",), values[f"{key}.weight"].transpose(2, 3, 1, 0))
-            _put(trees["params"], path + ("bias",), values[f"{key}.bias"])
+        if layer is None:
+            _put(trees["params"], path, values[key])
+            continue
+        if isinstance(layer, (nn.Conv2d, nn.Linear)):  # (out, in, kh, kw) -> (kh, kw, in, out); (out, in) -> (in, out)
+            _put(trees["params"], path + ("kernel",), values[f"{key}.weight"].T if isinstance(layer, nn.Linear)
+                 else values[f"{key}.weight"].transpose(2, 3, 1, 0))
+            if layer.bias is not None:
+                _put(trees["params"], path + ("bias",), values[f"{key}.bias"])
             continue
         dsbn = isinstance(layer, DomainSpecificBatchNorm)
         sub = f"{type(layer).__name__}_0"  # flax's auto-name of the norm

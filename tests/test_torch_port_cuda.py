@@ -7,9 +7,10 @@ bit, two graph windows bit-equal to single steps, a window's replays as
 spans under the profiler, the GN / IN
 forwards against the CPU, --remat bit-equal to no remat, the host input
 path on the card: the host-to-device stream, the viz ring, `fit` on the
-host loaders, and data-parallel steps on the card: one NCCL rank, and two
-gloo ranks sharing cuda:0, against the single-process step (marker `cuda`;
-skipped without a card).
+host loaders, data-parallel steps on the card: one NCCL rank, and two
+gloo ranks sharing cuda:0, against the single-process step, and TransUNet's
+attention on SDPA's memory-efficient kernel (no fallback) and its graph
+window against eager steps (marker `cuda`; skipped without a card).
 
 These tests import neither JAX nor the JAX package, so they also run where
 JAX is not installed; the root conftest.py imports JAX, so run them there
@@ -978,3 +979,76 @@ def test_train_step_runs_every_norm_through_the_kernels(gen):
     assert window.graphed() and window.replays == 4
     assert bn.device_launches() == dict.fromkeys(bn.ENTRIES, 6 * 38)
     assert bn.launches - host == 3 * 38  # 2 eager steps and the capture
+
+
+def test_transunet_attention_runs_the_memory_efficient_kernel(gen):
+    """TransUNet's attention on the card enables SDPA's memory-efficient
+    backend alone, so that a result is that kernel's: float32 at ViT-B/16's
+    heads at 512^2 (12 of 64 over 1,024 tokens) within 2e-5 of the float64
+    product; an input that backend refuses (float64) raises rather than fall
+    back to the math backend, which would have run it.  (The benchmark's
+    trace names the kernels, `fmha_cutlass{F,B}`; this test reads no trace,
+    since the profiler drops kernel records on this card.)"""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from ramdsir_tpu_torch.models.transunet import attention
+
+    q, k, v = (torch.randn(2, 12, 1024, 64, device="cuda", generator=gen) for _ in range(3))
+    out = attention(q, k, v)
+    want = torch.softmax(q.double() @ k.double().transpose(-1, -2) / 8.0, -1) @ v.double()
+    assert (out.double() - want).abs().max().item() < 2e-5
+    with sdpa_kernel([SDPBackend.MATH]):  # the math backend takes float64 ...
+        torch.nn.functional.scaled_dot_product_attention(q.double(), k.double(), v.double())
+    with pytest.raises(RuntimeError):  # ... and attention() does not fall back to it
+        attention(q.double(), k.double(), v.double())
+
+
+def test_transunet_graph_window_matches_eager_steps(gen, monkeypatch):
+    """Two windows of 3 tiny TransUNet steps at 64^2 (2 eager steps, the
+    capture, 4 replays) against 6 single eager steps from the same seed, at
+    lr 0, so that every step's loss is its forward's on the same weights
+    (the memory-efficient attention's and the align_corners upsample's
+    backwards add with atomics, which a trained state would carry into the
+    next step's loss): each step's loss equal within 1e-6 (a replay that
+    reused another step's dropout seeds or rows would part by ~1e-2), the
+    six losses unlike each other (every step its own draws), K1 run once a
+    step on the card, 4 replays, and the counters: the tokens of a step's
+    two halves through the memory-efficient attention."""
+    from ramdsir_tpu_torch.config import TrainConfig
+    from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
+    from ramdsir_tpu_torch.data.synthetic import fundus_arrays
+    from ramdsir_tpu_torch.models.transunet import counters
+    from ramdsir_tpu_torch.train.state import init_state
+    from ramdsir_tpu_torch.train.steps import make_train_step
+    from tests._transunet_tiny import register
+
+    cfg = TrainConfig(dataset="fundus", domain_idxs=(1, 2, 3), test_domain_idx=0, ram=True, rec=True,
+                      is_out_domain=True, consistency=True, consistency_type="kd", image_size=64, lr=0.0,
+                      model=register(monkeypatch), s2d_levels=0, device="cuda").resolve()
+    losses = {}
+    for name in ("single", "graph"):
+        pipe = DeviceFundusPipeline.from_arrays(
+            fundus_arrays(per_domain_train=8, size=64), cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx,
+            is_out_domain=True, seed=0, precompute_donor_amp=cfg.ram_precompute_donor_amp, device="cuda")
+        plans = [pipe.epoch_plan() for _ in range(6)]
+        plan = {k: np.concatenate([p[k] for p in plans])[:6] for k in plans[0]}
+        state = init_state(cfg, torch.Generator().manual_seed(0), "cuda")
+        g = torch.Generator().manual_seed(1)
+        torch.cuda.synchronize()
+        ram_mix.zero_device_launches()
+        if name == "single":
+            step = make_train_step(cfg, 20, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data)
+            losses[name] = torch.stack([step(state, {k: v[i] for k, v in plan.items()}, g)["loss"] for i in range(6)])
+        else:
+            window = make_train_step(cfg, 20, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data,
+                                     scan=True, window=3)
+            losses[name] = torch.cat([window(state, {k: v[i:i + 3] for k, v in plan.items()}, g)[0]["loss"]
+                                      for i in (0, 3)])
+            assert window.graphed() and window.replays == 4
+        torch.cuda.synchronize()
+        assert sum(ram_mix.device_launches().values()) == 6 and state.step == 6
+        enc = state.models["encoder"]
+        assert counters(enc) == {"vit_tokens": 2 * sum(cfg.batch_size_list) * enc.grid ** 2, "attn_backend": "efficient"}
+    a, b = losses["single"].double().cpu(), losses["graph"].double().cpu()
+    assert torch.isfinite(a).all() and ((a - b).abs() / a.abs()).max().item() < 1e-6, (a, b)
+    assert len(set(a.tolist())) == 6, a
