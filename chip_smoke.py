@@ -52,7 +52,10 @@ result line):
               ms, host ms per image, Dice, the best file (which must load
               strictly) and the CSV rows; eval adds no K1 launch; the batch
               norm's four kernels each run 38 times a float32 step (none in
-              bfloat16 or in eval), counted on the card
+              bfloat16 or in eval), and K2 and K3 8 times a step each (the
+              train step's NCHW activations) and never in eval (its
+              channels-last activations take aten's NHWC kernel), all
+              counted on the card, eval's apart
   bf16_path   the same trainer in bfloat16 (--compute_dtype and
               predict_dtype bfloat16), 21 steps (one epoch, one eval), with
               the same checks, beside the float32 default run's median
@@ -104,7 +107,8 @@ result line):
               and read back, at each epoch's end (20 steps) and at the last
               step, test batch 8 (4 window batches a volume, the last with
               2 zero rows).  K1 launches == steps, all on delta_flat, none in
-              eval; the 7 losses finite every step; 2 CSV rows; Dice in
+              eval; K2 and K3 8 a step each, none in eval (as main_path); the
+              7 losses finite every step; 2 CSV rows; Dice in
               [0, 1]; the final and keep-best .pth load strictly
   prostate_bf16_path
               the same in bfloat16, 12 steps (one eval, at the last), beside
@@ -136,9 +140,10 @@ result line):
               --deterministic: fundus and prostate, float32 and bfloat16,
               fit runs of 8 steps without, with, with and without the mode:
               the two with it bit-equal (state, Adam moments, losses), K2
-              launches 8 a step and none in eval or without the mode, K3
-              (the forward) 8 a training step, 4 an eval batch, none
-              without the mode; two
+              and K3 launch 8 a training step each in every run, mode or
+              not; in eval K2 never, K3 4 an eval batch under the mode
+              (eval's channels-last activations made contiguous), none
+              without it (aten's NHWC kernel); two
               steps from one re-loaded state bit-equal; the mode's cost in
               median step time
   k2          K2 against its plain version (bit-equal) and torch's atomics
@@ -209,8 +214,9 @@ result line):
 Then the card line from nvidia-smi, the kernels line (K1 per mode and at
 the prostate shape, the variant and ddp runs' launches (per rank) added to
 the band-delta entries by run and the host-loader runs' to the full entry;
-K2 and K3 each summed over a deterministic step's 8 launches for
-each run, and at the largest shape), and the result line.  Every run's
+K2 and K3 each summed over a step's 8 shapes, with the launches in
+training and in eval of the main_path and prostate_path runs, float32
+and bfloat16, and at the largest shape), and the result line.  Every run's
 launches are the kernels' own counts on the card (`read_launches`): each
 kernel adds one to a device counter as it runs, so a graph replay counts
 and a launch recorded into a graph that never runs does not;
@@ -314,6 +320,50 @@ def read_launches(torch):
                 k3=up["forward"], bn=batch_norm.device_launches(),
                 host=dict(k1=ram_mix.launches, k2=upsample.launches, k3=upsample.forward_launches,
                           bn=[batch_norm.launches, batch_norm.backward_launches]))
+
+
+@contextlib.contextmanager
+def eval_launches():
+    """While it lasts, `fit`'s in-training evals count K2's and K3's device
+    launches apart from the steps': yields a dict whose `k2` and `k3` are
+    the launches inside the evals so far and whose `in_eval` is true while
+    one runs."""
+    from ramdsir_tpu_torch.ops import upsample
+    from ramdsir_tpu_torch.train import loop
+
+    evaluate, seen = loop.evaluate_target, dict(k2=0, k3=0, in_eval=False)
+
+    def counting(*args, **kwargs):
+        before, seen["in_eval"] = upsample.device_launches(), True
+        try:
+            return evaluate(*args, **kwargs)
+        finally:
+            after = upsample.device_launches()
+            seen["k2"] += after["backward"] - before["backward"]
+            seen["k3"] += after["forward"] - before["forward"]
+            seen["in_eval"] = False
+
+    with mock.patch.object(loop, "evaluate_target", counting):
+        yield seen
+
+
+def upsample_fields(counts, eval_counts):
+    """K2's and K3's launches of a run (`read_launches`' counts, `eval_counts`
+    from `eval_launches`): in the steps, in the evals, and the wrappers'
+    counts."""
+    return dict(k2_launches=counts["k2"] - eval_counts["k2"], k3_launches=counts["k3"] - eval_counts["k3"],
+                k2_eval_launches=eval_counts["k2"], k3_eval_launches=eval_counts["k3"],
+                k2_host_launches=counts["host"]["k2"], k3_host_launches=counts["host"]["k3"])
+
+
+def check_upsample(phase, entry, steps):
+    """K2 and K3 run 8 times a training step each on the card (the train
+    step's activations are NCHW-contiguous) and never in eval (channels-last:
+    aten's NHWC kernel)."""
+    got = {k: entry[k] for k in ("k2_launches", "k3_launches", "k2_eval_launches", "k3_eval_launches")}
+    want = dict(k2_launches=8 * steps, k3_launches=8 * steps, k2_eval_launches=0, k3_eval_launches=0)
+    if got != want:
+        raise SystemExit(f"{phase}: upsample launches {got}, expected {want}")
 
 
 def emit(phase, **kw):
@@ -691,7 +741,8 @@ def phase_main_path(torch, np, ram_mix, arrays, testset):
         torch.cuda.reset_peak_memory_stats()
         zero_launches(torch)
         t0 = time.perf_counter()
-        summary = fit(cfg, max_steps=steps, pipeline=pipe, testset=testset)
+        with eval_launches() as eval_counts:
+            summary = fit(cfg, max_steps=steps, pipeline=pipe, testset=testset)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read_launches(torch)
@@ -711,7 +762,7 @@ def phase_main_path(torch, np, ram_mix, arrays, testset):
         entry = dict(
             run=name, steps=summary["steps"], k1_launches=launches, k1_paths=paths,
             k1_host_launches=counts["host"]["k1"], bn_launches=counts["bn"], bn_host_launches=counts["host"]["bn"],
-            losses_finite=finite,
+            **upsample_fields(counts, eval_counts), losses_finite=finite,
             first_loss=rows[0]["loss/loss"], last_loss=[r for r in rows if "loss/loss" in r][-1]["loss/loss"],
             median_step_ms=summary["median_step_ms"], images_per_sec=summary["images_per_sec"],
             peak_memory_bytes=peak, wall_s=wall, batch=sum(cfg.batch_size_list), image_size=S,
@@ -740,6 +791,7 @@ def phase_main_path(torch, np, ram_mix, arrays, testset):
         bn_expected = NORMS_PER_STEP * steps if cfg.compute_dtype == "float32" else 0
         if counts["bn"] != {k: bn_expected for k in counts["bn"]}:
             raise SystemExit(f"main path {name}: batch norm kernels ran {counts['bn']}, expected {bn_expected} each")
+        check_upsample(f"main path {name}", entry, steps)
         runs[name] = entry
     return runs
 
@@ -859,8 +911,8 @@ def phase_resume(torch, np, ram_mix, arrays, testset, steps_done):
     every parameter, buffer and Adam moment is bit-equal.  One step from
     each (same row and draws, TF32 off, deterministic cuDNN): the forward
     (losses, running statistics) bit-equal, and the parameters as close as
-    two steps from the same loaded state come (the bilinear upsample's
-    backward adds with atomics, so two steps from one state may part by a
+    two steps from the same loaded state come (some of torch's backward
+    kernels add with atomics, so two steps from one state may part by a
     flipped Adam sign, within step_parity's 2.5*lr).  Then `fit` resumed
     from the file with max_steps = its steps + RESUME_STEPS: that many steps,
     as many K1 launches, all on delta_flat, the lr going on along the
@@ -1089,7 +1141,8 @@ def phase_prostate_path(torch, np, ram_mix, prostate, data_root, bf16_beside=Non
     torch.cuda.reset_peak_memory_stats()
     zero_launches(torch)
     t0 = time.perf_counter()
-    summary = fit(cfg, max_steps=steps, pipeline=pipe)
+    with eval_launches() as eval_counts:
+        summary = fit(cfg, max_steps=steps, pipeline=pipe)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_launches(torch)
@@ -1111,7 +1164,8 @@ def phase_prostate_path(torch, np, ram_mix, prostate, data_root, bf16_beside=Non
     entry = dict(
         run="prostate_bf16" if bf16 else "prostate", steps=summary["steps"], k1_launches=launches, k1_paths=paths,
         k1_host_launches=counts["host"]["k1"], bn_launches=counts["bn"], bn_host_launches=counts["host"]["bn"],
-        losses_finite=finite, compute_dtype=cfg.compute_dtype, predict_dtype=cfg.predict_dtype,
+        **upsample_fields(counts, eval_counts), losses_finite=finite, compute_dtype=cfg.compute_dtype,
+        predict_dtype=cfg.predict_dtype,
         first_loss=steps_logged[0]["loss/loss"], last_loss=steps_logged[-1]["loss/loss"],
         median_step_ms=summary["median_step_ms"], images_per_sec=summary["images_per_sec"],
         peak_memory_bytes=peak, wall_s=wall, batch=sum(cfg.batch_size_list), image_size=PS,
@@ -1135,6 +1189,7 @@ def phase_prostate_path(torch, np, ram_mix, prostate, data_root, bf16_beside=Non
     bn_expected = 0 if bf16 else NORMS_PER_STEP * steps
     if counts["bn"] != {k: bn_expected for k in counts["bn"]}:
         raise SystemExit(f"{phase}: batch norm kernels ran {counts['bn']}, expected {bn_expected} each")
+    check_upsample(phase, entry, steps)
     return entry
 
 
@@ -1839,31 +1894,31 @@ def phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, prostate_
     bfloat16, four `fit` runs of DET_STEPS steps from one seed, in turns
     without and with the mode.  The two deterministic runs must end in
     bit-equal parameters, BN statistics and Adam moments (their
-    final_model.ckpt) and log bit-equal losses; K2 launches 8 a step with
-    --rec and none in eval (launches == 8 x steps), none without the mode;
-    K3 (the forward) launches 8 a training step (counted apart from eval,
-    where it launches 4 an eval batch) and none without the mode;
+    final_model.ckpt) and log bit-equal losses; K2 and K3 launch 8 a
+    training step each with --rec in every run, with the mode or without
+    it (the train step's activations are NCHW-contiguous); in eval K2
+    never, K3 4 an eval batch under the mode (counted apart from the
+    steps), none without it (channels-last: aten's NHWC kernel);
     K1 launches == steps in every run.  Two steps from one re-loaded state
-    under the mode are bit-equal (without it they part by ~9e-6: the
-    atomics of torch's upsample backward).
+    under the mode are bit-equal (without it cuDNN's algorithms may part
+    them).
     Every (shape, dtype) K2 and K3 met then goes through phase_k2.  The runs
     take the default scan windows, so the recording hooks on K2's and K3's
     wrappers see the two eager warm-up steps and the capture only, never a
     replay: the shapes are those of every step all the same.  The K1, K2
     and K3 counts are the kernels' own on the card, replays included, and
-    K3's in eval are read on the card around each eval."""
+    K2's and K3's in eval are read on the card around each eval."""
     import dataclasses
 
     from ramdsir_tpu_torch.config import TrainConfig
     from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline, DeviceProstatePipeline
     from ramdsir_tpu_torch.ops import upsample
-    from ramdsir_tpu_torch.train import loop
     from ramdsir_tpu_torch.train.checkpoint import read_checkpoint
     from ramdsir_tpu_torch.train.loop import deterministic_mode, fit
     from ramdsir_tpu_torch.train.steps import sample_step_draws
 
-    shapes, forward_shapes, runs, eval_k3, in_eval = [], [], {}, [0], [False]
-    record, record_forward, evaluate = upsample.upsample2x_backward, upsample.upsample2x_forward, loop.evaluate_target
+    shapes, forward_shapes, runs, eval_now = [], [], {}, [dict(in_eval=False)]
+    record, record_forward = upsample.upsample2x_backward, upsample.upsample2x_forward
 
     def recording(grad):
         key = (tuple(grad.shape[:2]) + (grad.shape[2] // 2, grad.shape[3] // 2), grad.dtype)
@@ -1872,17 +1927,9 @@ def phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, prostate_
         return record(grad)
 
     def recording_forward(x):  # the training steps' shapes only
-        if not in_eval[0] and (tuple(x.shape), x.dtype) not in forward_shapes:
+        if not eval_now[0]["in_eval"] and (tuple(x.shape), x.dtype) not in forward_shapes:
             forward_shapes.append((tuple(x.shape), x.dtype))
         return record_forward(x)
-
-    def counting_eval(*args, **kwargs):  # K3's launches in eval, apart from the steps'
-        before, in_eval[0] = upsample.device_launches()["forward"], True
-        try:
-            return evaluate(*args, **kwargs)
-        finally:
-            eval_k3[0] += upsample.device_launches()["forward"] - before
-            in_eval[0] = False
 
     for dataset, bf16 in (("fundus", False), ("fundus", True), ("prostate", False), ("prostate", True)):
         name = dataset + ("_bf16" if bf16 else "")
@@ -1903,15 +1950,15 @@ def phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, prostate_
             cfg = dataclasses.replace(cfg0, save_path=os.path.join(root, rep), deterministic=rep.startswith("det"))
             shutil.rmtree(cfg.save_path, ignore_errors=True)
             zero_launches(torch)
-            eval_k3[0] = 0
             with mock.patch.object(upsample, "upsample2x_backward", recording), \
                     mock.patch.object(upsample, "upsample2x_forward", recording_forward), \
-                    mock.patch.object(loop, "evaluate_target", counting_eval):
+                    eval_launches() as seen:
+                eval_now[0] = seen
                 summary = fit(cfg, max_steps=DET_STEPS, pipeline=make_pipe(cfg), testset=data)
             counts = read_launches(torch)
             rows = [json.loads(line) for line in open(os.path.join(cfg.save_path, "log", "metrics.jsonl"))]
-            out[rep] = dict(summary=summary, k1=counts["k1"], k2=counts["k2"], k3=counts["k3"] - eval_k3[0],
-                            k3_eval=eval_k3[0], host=counts["host"],
+            out[rep] = dict(summary=summary, k1=counts["k1"], k2=counts["k2"] - seen["k2"], k3=counts["k3"] - seen["k3"],
+                            k2_eval=seen["k2"], k3_eval=seen["k3"], host=counts["host"],
                             losses=[{k: v for k, v in r.items() if k.startswith("loss/")} for r in rows if "loss/loss" in r],
                             state=read_checkpoint(summary["resume_checkpoint"])["state"])
         a, b = out["deterministic"], out["deterministic_again"]
@@ -1934,6 +1981,7 @@ def phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, prostate_
                      k1_launches={rep: out[rep]["k1"] for rep in DET_RUNS},
                      k2_launches={rep: out[rep]["k2"] for rep in DET_RUNS},
                      k3_launches={rep: out[rep]["k3"] for rep in DET_RUNS},
+                     k2_eval_launches={rep: out[rep]["k2_eval"] for rep in DET_RUNS},
                      k3_eval_launches={rep: out[rep]["k3_eval"] for rep in DET_RUNS},
                      host_launches={rep: out[rep]["host"] for rep in DET_RUNS},
                      median_step_ms=med, mode_cost_ms=on - off, mode_cost_share=(on - off) / off,
@@ -1946,9 +1994,10 @@ def phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, prostate_
             raise SystemExit(f"deterministic {name}: the two runs differ (state {state_equal}, losses {losses_equal})")
         if any(out[rep]["k1"] != DET_STEPS for rep in DET_RUNS):
             raise SystemExit(f"deterministic {name}: K1 launches {entry['k1_launches']}, expected {DET_STEPS} each")
-        want_k2 = {rep: 8 * DET_STEPS if rep.startswith("det") else 0 for rep in DET_RUNS}
-        if entry["k2_launches"] != want_k2:
-            raise SystemExit(f"deterministic {name}: K2 launches {entry['k2_launches']}, expected {want_k2}")
+        want_k2 = {rep: 8 * DET_STEPS for rep in DET_RUNS}
+        if entry["k2_launches"] != want_k2 or any(entry["k2_eval_launches"].values()):
+            raise SystemExit(f"deterministic {name}: K2 launches {entry['k2_launches']} in training, "
+                             f"{entry['k2_eval_launches']} in eval, expected {want_k2} and none")
         if entry["k3_launches"] != want_k2:
             raise SystemExit(f"deterministic {name}: K3 launches in training {entry['k3_launches']}, expected {want_k2}")
         if any((n > 0 and n % 4 == 0) != rep.startswith("det") for rep, n in entry["k3_eval_launches"].items()):
@@ -1969,28 +2018,19 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"
 
 
 def scan_fit(torch, ram_mix, cfg, pipe, steps, testset):
-    """`fit` of `steps` steps with K1, K2 and K3 counted from 0 and K3's eval
-    launches apart: (summary, counts, the loss and lr rows without the
-    clock, the final .ckpt tree)."""
-    from ramdsir_tpu_torch.ops import upsample
-    from ramdsir_tpu_torch.train import loop
+    """`fit` of `steps` steps with K1, K2 and K3 counted from 0 and K2's and
+    K3's eval launches apart: (summary, counts, the loss and lr rows without
+    the clock, the final .ckpt tree)."""
     from ramdsir_tpu_torch.train.checkpoint import read_checkpoint
-
-    evaluate, in_eval = loop.evaluate_target, [0]
-
-    def counting_eval(*args, **kwargs):
-        before = upsample.device_launches()["forward"]
-        try:
-            return evaluate(*args, **kwargs)
-        finally:
-            in_eval[0] += upsample.device_launches()["forward"] - before
+    from ramdsir_tpu_torch.train.loop import fit
 
     shutil.rmtree(cfg.save_path, ignore_errors=True)
     zero_launches(torch)
-    with mock.patch.object(loop, "evaluate_target", counting_eval):
-        summary = loop.fit(cfg, max_steps=steps, pipeline=pipe, testset=testset)
+    with eval_launches() as eval_counts:
+        summary = fit(cfg, max_steps=steps, pipeline=pipe, testset=testset)
     got = read_launches(torch)
-    counts = dict(k1=got["k1"], k2=got["k2"], k3=got["k3"] - in_eval[0], k3_eval=in_eval[0], host=got["host"])
+    counts = dict(k1=got["k1"], k2=got["k2"] - eval_counts["k2"], k3=got["k3"] - eval_counts["k3"],
+                  k2_eval=eval_counts["k2"], k3_eval=eval_counts["k3"], host=got["host"])
     rows = [json.loads(line) for line in open(os.path.join(cfg.save_path, "log", "metrics.jsonl"))]
     rows = [{k: v for k, v in r.items() if k != "t"} for r in rows if "loss/loss" in r or "lr" in r]
     return summary, counts, rows, read_checkpoint(summary["resume_checkpoint"])["state"]
@@ -2092,7 +2132,7 @@ def phase_scan(torch, np, ram_mix, arrays, testset, prostate, prostate_root, car
     ring append under the sync debug mode "error"; and, without
     --deterministic, the fundus float32 losses of graph against eager and
     of eager against eager (the atomics of cuDNN's and torch's backward
-    make two eager runs part), gated on finite losses only."""
+    kernels make two eager runs part), gated on finite losses only."""
     import dataclasses
 
     from ramdsir_tpu_torch.config import TrainConfig
@@ -2120,7 +2160,7 @@ def phase_scan(torch, np, ram_mix, arrays, testset, prostate, prostate_root, car
             pipe = fundus_pipe(cfg) if dataset == "fundus" else prostate_pipe(cfg)
             out[mode] = scan_fit(torch, ram_mix, cfg, pipe, steps, testset if dataset == "fundus" else None)
         (sa, ca, ra, ta), (sb, cb, rb, tb) = out["scan_window_1"], out["graph"]
-        want = dict(k1=steps, k2=8 * steps, k3=8 * steps)
+        want = dict(k1=steps, k2=8 * steps, k3=8 * steps, k2_eval=0)
         entry = dict(run=dataset, steps=steps, deterministic=True, state_bit_equal=_same_tree(np, ta, tb),
                      logged_rows_bit_equal=ra == rb and len(ra) == 2 * steps,
                      launches={"scan_window_1": ca, "graph": cb},
@@ -2999,11 +3039,11 @@ def run_phases(torch, card, name, bw):
     emit("prostate_data", domains=len(prostate), per_domain=PROSTATE_SLICES, size=PS,
          volumes=PROSTATE_VOLUMES, depth=PROSTATE_DEPTH, seconds=time.perf_counter() - t0)
     prostate_run = phase_prostate_path(torch, np, ram_mix, prostate, data_root)
-    phase_prostate_path(torch, np, ram_mix, prostate, data_root, bf16_beside=prostate_run)
+    prostate_bf16_run = phase_prostate_path(torch, np, ram_mix, prostate, data_root, bf16_beside=prostate_run)
     phase_prostate_eval_cli(torch, np, data_root)
     png_run = phase_png_tree(torch, np, ram_mix)
     host_runs = phase_host_loader(torch, np, ram_mix, png_run, prostate, data_root)
-    det_runs, k2_shapes, k3_shapes = phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, data_root)
+    _, k2_shapes, k3_shapes = phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, data_root)
     k2, k3 = phase_k2(torch, bw, k2_shapes, k3_shapes)
     _, variant_launches = phase_variants(torch, np, ram_mix, arrays, testset, prostate, data_root, runs["default"])
     _, ddp_launches = phase_ddp(torch, np, ram_mix, arrays, testset, data_root)
@@ -3053,11 +3093,13 @@ def run_phases(torch, card, name, bw):
         "floor_ms": k["floor_ms"], "kernel_ms": k["kernel_ms"], "ms_clean_flush": k["ms_clean_flush"],
         "floor_ms_clean_flush": k["floor_ms_clean_flush"], "path": k["path"],
     })
-    # K2 and K3: the sum over the 8 launches of one deterministic step (each
-    # shape once a step), for each run, and the largest shape alone
-    for kernel, cases, shapes, launches in (("upsample2x_backward", k2, k2_shapes, "k2_launches"),
-                                            ("upsample2x_forward", k3, k3_shapes, "k3_launches")):
-        for run, det in det_runs.items():
+    # K2 and K3: the sum over the 8 launches of one step (each shape once a
+    # step), with the launches of each main path run, and the largest shape alone
+    train_runs = {"fundus": runs["default"], "fundus_bf16": runs["bf16"], "prostate": prostate_run,
+                  "prostate_bf16": prostate_bf16_run}
+    for kernel, cases, shapes, launches in (("upsample2x_backward", k2, k2_shapes, "k2"),
+                                            ("upsample2x_forward", k3, k3_shapes, "k3")):
+        for run, entry in train_runs.items():
             dtype = "bfloat16" if run.endswith("bf16") else "float32"
             step_cases = [cases[f"{'x'.join(map(str, shape))}:{dtype}"] for shape, dt in shapes
                           if str(dt).endswith(dtype) and (shape[0] in (B, 2 * B)) == run.startswith("fundus")]
@@ -3066,18 +3108,18 @@ def run_phases(torch, card, name, bw):
             total = lambda key: sum(c[key] for c in step_cases)
             line["kernels"].append({
                 "name": f"{kernel}[{run} step: 8 shapes]", "route": "cuda", "source": SOURCE_K2,
-                "replaces": REPLACES_K2, "launches": det[launches]["deterministic"],
-                "host_launches": det["host_launches"]["deterministic"][launches[:2]],
+                "replaces": REPLACES_K2, "launches": entry[f"{launches}_launches"],
+                "host_launches": entry[f"{launches}_host_launches"],
+                "eval_launches": entry[f"{launches}_eval_launches"],
                 "max_abs_err": max(c["max_abs_err"] for c in step_cases), "ms": total("ms"),
                 "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"), "bound_by": "bytes",
                 "library_ms": total("library_ms"), "kernel_ms": total("kernel_ms"),
                 "library_kernel_ms": total("library_kernel_ms"), "shapes": [c["shape"] for c in step_cases],
-                **({"eval_launches": det["k3_eval_launches"]["deterministic"]} if kernel.endswith("forward") else {}),
             })
         big = cases[f"{2 * B}x32x{S // 2}x{S // 2}:float32"]
         line["kernels"].append({
             "name": f"{kernel}[{2 * B}x32x{S // 2}x{S // 2} float32]", "route": "cuda", "source": SOURCE_K2,
-            "replaces": REPLACES_K2, "launches": det_runs["fundus"][launches]["deterministic"] // 8,
+            "replaces": REPLACES_K2, "launches": runs["default"][f"{launches}_launches"] // 8,
             **{k: big[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms",
                                    "library_kernel_ms")},
         })

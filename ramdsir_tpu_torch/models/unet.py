@@ -59,7 +59,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ramdsir_tpu_torch.models.norm import BatchNorm, DomainSpecificBatchNorm, GroupNorm, InstanceNorm
-from ramdsir_tpu_torch.ops.upsample import Upsample2x
+from ramdsir_tpu_torch.ops.upsample import Upsample2x, kernels_take
 
 Domain = Union[int, Sequence[int], np.ndarray]
 
@@ -76,11 +76,14 @@ def init_weights(module: nn.Module, generator: Optional[torch.Generator]) -> Non
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """Bilinear x2, align_corners=False.  While torch's deterministic mode
-    is on (`fit` under cfg.deterministic), it is `ops/upsample.Upsample2x`:
-    on the card kernel K3 forward and kernel K2 backward; otherwise it is
-    torch's own."""
-    if torch.are_deterministic_algorithms_enabled():
+    """Bilinear x2, align_corners=False.  On a tensor that kernels K3
+    (forward) and K2 (backward) take as it lies (`ops/upsample.kernels_take`:
+    NCHW-contiguous float32 or bfloat16 on the card, the train step's
+    activations), and on every tensor while torch's deterministic mode is on
+    (`fit` under cfg.deterministic), it is `ops/upsample.Upsample2x`;
+    otherwise torch's own: aten's kernels on CPU tensors and on the card's
+    channels-last ones (eval's), which its NHWC kernel reads as they lie."""
+    if torch.are_deterministic_algorithms_enabled() or kernels_take(x):
         return Upsample2x.apply(x)
     return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
 

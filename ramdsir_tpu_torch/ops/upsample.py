@@ -22,8 +22,9 @@ recorded into a CUDA graph counts there once.  Each kernel also adds one to
 a counter on its device each time it runs, a graph's replays included:
 `device_launches()` reads those counts and `zero_device_launches()` sets
 them to 0.  `Upsample2x` is the upsample
-with both kernels on the card; `models/unet.upsample2x` takes it while
-torch's deterministic mode is on.
+with both kernels on the card; `models/unet.upsample2x` takes it for every
+tensor `kernels_take` accepts, and for every tensor while torch's
+deterministic mode is on.
 """
 from __future__ import annotations
 
@@ -143,22 +144,40 @@ def upsample2x_forward_plain(x: torch.Tensor) -> torch.Tensor:
 # --- the wrappers --------------------------------------------------------------------
 
 
-def _check(t: torch.Tensor, name: str, elements: int) -> None:
-    """What both wrappers refuse wherever the tensor lies: `elements` is the
-    input-side count (N*C*H*W), which the kernels index in 32 bits."""
+def _refusal(t: torch.Tensor, elements: int) -> Optional[Exception]:
+    """Why the wrappers refuse the tensor `t` as it lies, or None.
+    `elements` is the input-side count (N*C*H*W), which the kernels index
+    in 32 bits.  A CPU tensor takes the plain versions (float64 too);
+    anywhere else only K2 and K3 do, on a CUDA tensor in float32 or
+    bfloat16, NCHW contiguous."""
+    dtypes = "float32 or bfloat16 tensors only (float64 on the CPU)"
     if t.dtype not in DTYPES + (torch.float64,):
-        raise TypeError(f"{name}: float32 or bfloat16 tensors only (float64 on the CPU), got {t.dtype}")
+        return TypeError(f"{dtypes}, got {t.dtype}")
     if elements >= 2**31:
-        raise ValueError(f"{name}: {elements} elements exceed the kernel's 32-bit indices")
-
-
-def _check_cuda(t: torch.Tensor, name: str) -> None:
+        return ValueError(f"{elements} elements exceed the kernel's 32-bit indices")
+    if t.device.type == "cpu":
+        return None
     if t.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {t.device}")
+        return ValueError(f"no kernel for device {t.device}")
     if t.dtype not in DTYPES:
-        raise TypeError(f"{name}: float32 or bfloat16 tensors only (float64 on the CPU), got {t.dtype}")
+        return TypeError(f"{dtypes}, got {t.dtype}")
     if not t.is_contiguous():
-        raise ValueError(f"{name}: the tensor must be NCHW contiguous")
+        return ValueError("the tensor must be NCHW contiguous")
+    return None
+
+
+def _check(t: torch.Tensor, name: str, elements: int) -> None:
+    err = _refusal(t, elements)
+    if err is not None:
+        raise type(err)(f"{name}: {err}")
+
+
+def kernels_take(x: torch.Tensor) -> bool:
+    """Whether K3 and K2 take the input `x` as it lies: a non-empty 4-D
+    CUDA tensor that the wrappers accept (`_refusal`).  A channels-last
+    tensor (eval's activations) is not taken: aten's NHWC kernel reads it
+    without a transpose."""
+    return x.device.type == "cuda" and x.dim() == 4 and x.numel() > 0 and _refusal(x, x.numel()) is None
 
 
 def vector_path(t: torch.Tensor, out: torch.Tensor) -> bool:
@@ -179,7 +198,6 @@ def upsample2x_backward(grad: torch.Tensor) -> torch.Tensor:
     _check(grad, "upsample2x_backward", n * c * (h2 // 2) * (w2 // 2))
     if grad.device.type == "cpu":
         return upsample2x_backward_plain(grad)
-    _check_cuda(grad, "upsample2x_backward")
     out = torch.empty((n, c, h2 // 2, w2 // 2), dtype=grad.dtype, device=grad.device)
     _launch("upsample2x_backward_launch", grad, out)
     global launches
@@ -197,7 +215,6 @@ def upsample2x_forward(x: torch.Tensor) -> torch.Tensor:
     _check(x, "upsample2x_forward", n * c * h * w)
     if x.device.type == "cpu":
         return upsample2x_forward_plain(x)
-    _check_cuda(x, "upsample2x_forward")
     out = torch.empty((n, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
     _launch("upsample2x_forward_launch", x, out)
     global forward_launches
@@ -225,8 +242,9 @@ def _launch(entry: str, src: torch.Tensor, dst: torch.Tensor) -> None:
 
 class Upsample2x(torch.autograd.Function):
     """Bilinear x2 (align_corners=False): on CUDA tensors K3 forward and K2
-    backward, the input and the gradient made NCHW contiguous (eval's
-    activations are channels-last: the predict path permutes NHWC images).  On CPU tensors the
+    backward, the input and the gradient made NCHW contiguous (a
+    channels-last input reaches it only under deterministic mode: eval's
+    activations, from the predict path's permuted NHWC images).  On CPU tensors the
     forward stays aten's, the one `F.interpolate` runs on the default path,
     and the backward is K2's plain version: on the CPU the mode then changes
     only the backward's summation order, as before K3 existed (a training

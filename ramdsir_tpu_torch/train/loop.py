@@ -141,9 +141,10 @@ CUBLAS_WORKSPACE_CONFIG = ":4096:8"  # a deterministic cuBLAS workspace, as torc
 def deterministic_mode(on: bool):
     """Bit-repeatable device steps for the duration (--deterministic, as
     the reference's train.py:608-614 and more): cuDNN deterministic and
-    not benchmarking, `torch.use_deterministic_algorithms(True)` (so the
-    upsample's backward is kernel K2, `models/unet.upsample2x`, and any op
-    with only an atomics path raises instead of running), and, unless the
+    not benchmarking, `torch.use_deterministic_algorithms(True)` (so every x2
+    upsample on the card is kernels K3 and K2, eval's channels-last ones
+    too, `models/unet.upsample2x`, and any op with only an atomics path
+    raises instead of running), and, unless the
     environment sets it, CUBLAS_WORKSPACE_CONFIG, without which torch
     refuses cuBLAS products in this mode.  Every setting is restored on
     exit, so runs in one process do not inherit each other's mode."""

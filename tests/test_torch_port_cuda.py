@@ -209,6 +209,27 @@ def test_predict_on_card_matches_cpu(eval_models, bn_adapt):
 
 
 @pytest.mark.parametrize("bn_adapt", [False, True])
+def test_predict_on_card_keeps_atens_channels_last_upsample(eval_models, bn_adapt):
+    """The predict path's forward (NHWC images permuted: channels-last
+    activations) takes aten's NHWC upsample, not K3 or K2, with and without
+    BN adaptation: neither kernel runs on the card, neither wrapper is
+    called."""
+    from ramdsir_tpu_torch.ops import upsample
+    from ramdsir_tpu_torch.train.steps import make_predict_fn
+
+    cfg, models = eval_models
+    img = np.random.default_rng(1).integers(0, 256, (4, EVAL_S, EVAL_S, 3)).astype(np.uint8)
+    predict = make_predict_fn(cfg, models["cuda"], bn_adapt=bn_adapt)
+    torch.cuda.synchronize()
+    upsample.zero_device_launches()
+    host = (upsample.launches, upsample.forward_launches)
+    predict(img)
+    torch.cuda.synchronize()
+    assert upsample.device_launches() == {"backward": 0, "forward": 0}
+    assert (upsample.launches, upsample.forward_launches) == host
+
+
+@pytest.mark.parametrize("bn_adapt", [False, True])
 def test_eval_fundus_on_card_matches_cpu(eval_models, bn_adapt):
     """eval_fundus on an in-memory split of 10 images at 96^2 (test batch 4,
     a tail of 2): Dice within 1e-3, distances from the same host library."""
@@ -418,6 +439,41 @@ def test_graph_windows_match_single_steps_on_card(gen):
         assert sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
 
 
+def test_default_graph_window_runs_k3_and_k2_eight_times_a_step(gen):
+    """Two windows of 3 fundus steps at 64^2 without deterministic_mode (2
+    eager steps, the capture and 4 replays): K3 and K2 run 8 times a step
+    each, 48 in all, as the kernels count themselves on the card; their
+    wrappers count the 2 eager steps and the capture only."""
+    from ramdsir_tpu_torch.config import TrainConfig
+    from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
+    from ramdsir_tpu_torch.data.synthetic import fundus_arrays
+    from ramdsir_tpu_torch.ops import upsample
+    from ramdsir_tpu_torch.train.state import init_state
+    from ramdsir_tpu_torch.train.steps import make_train_step
+
+    cfg = TrainConfig(dataset="fundus", domain_idxs=(1, 2, 3), test_domain_idx=0, ram=True, rec=True,
+                      is_out_domain=True, consistency=True, consistency_type="kd", image_size=64,
+                      device="cuda").resolve()
+    pipe = DeviceFundusPipeline.from_arrays(
+        fundus_arrays(per_domain_train=8, size=64), cfg.domain_idxs, cfg.batch_size_list, cfg.test_domain_idx,
+        is_out_domain=True, seed=0, precompute_donor_amp=cfg.ram_precompute_donor_amp, device="cuda")
+    plans = [pipe.epoch_plan() for _ in range(6)]
+    plan = {k: np.concatenate([p[k] for p in plans])[:6] for k in plans[0]}
+    state = init_state(cfg, torch.Generator().manual_seed(0), "cuda")
+    window = make_train_step(cfg, 20, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data,
+                             scan=True, window=3)
+    torch.cuda.synchronize()
+    upsample.zero_device_launches()
+    host = (upsample.launches, upsample.forward_launches)
+    g = torch.Generator().manual_seed(1)
+    tables = [window(state, {k: v[i:i + 3] for k, v in plan.items()}, g)[0] for i in (0, 3)]
+    torch.cuda.synchronize()
+    assert not torch.are_deterministic_algorithms_enabled() and window.graphed() and window.replays == 4
+    assert upsample.device_launches() == {"backward": 48, "forward": 48}
+    assert (upsample.launches - host[0], upsample.forward_launches - host[1]) == (24, 24)
+    assert all(bool(torch.isfinite(t["loss"]).all()) for t in tables)
+
+
 def test_replays_show_as_spans_on_card(gen):
     """A graph window of 3 fundus steps at 64^2 under torch.profiler, after
     the window that captured the graph: one `ramdsir.train.replay` span a
@@ -572,10 +628,10 @@ def test_k3_refuses_what_it_cannot_take(gen):
         upsample.upsample2x_forward(x.double())
 
 
-def _deterministic_steps(cfg, steps=2):
-    """`steps` steps of a fresh state and a fresh pipeline from one seed
-    under deterministic_mode; the state, the metrics and K2's and K3's
-    launches."""
+def _fundus_steps(cfg, steps=2, deterministic=True):
+    """`steps` steps of a fresh state and a fresh pipeline from one seed,
+    under deterministic_mode or without it; the state, the metrics and K2's
+    and K3's launches."""
     from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
     from ramdsir_tpu_torch.data.synthetic import fundus_arrays
     from ramdsir_tpu_torch.ops import upsample
@@ -591,7 +647,7 @@ def _deterministic_steps(cfg, steps=2):
     step = make_train_step(cfg, total_iters=10, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data)
     gen, rows, metrics = torch.Generator().manual_seed(1), iter(pipe), []
     before = (upsample.launches, upsample.forward_launches)
-    with deterministic_mode(True):
+    with deterministic_mode(deterministic):
         for _ in range(steps):
             metrics.append({k: v.clone() for k, v in step(state, next(rows), gen).items()})
     torch.cuda.synchronize()
@@ -608,7 +664,7 @@ def test_deterministic_steps_repeat_bit_for_bit(gen, compute_dtype):
     cfg = TrainConfig(dataset="fundus", domain_idxs=(1, 2, 3), test_domain_idx=0, ram=True, rec=True,
                       is_out_domain=True, consistency=True, consistency_type="kd", image_size=64,
                       compute_dtype=compute_dtype, device="cuda").resolve()
-    (a, ma, ka), (b, mb, kb) = _deterministic_steps(cfg), _deterministic_steps(cfg)
+    (a, ma, ka), (b, mb, kb) = _fundus_steps(cfg), _fundus_steps(cfg)
     assert not torch.are_deterministic_algorithms_enabled()
     assert ka == kb == (2 * 8, 2 * 8)
     for x, y in zip(ma, mb):
@@ -621,6 +677,52 @@ def test_deterministic_steps_repeat_bit_for_bit(gen, compute_dtype):
     for p, q in zip(pa, pb):
         sa, sb = a.optimizer.state[p], b.optimizer.state[q]
         assert sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def test_default_step_matches_the_step_on_atens_upsample(gen, monkeypatch):
+    """One fundus step at 64^2 from one seed without deterministic_mode
+    (TF32 off), on the default route (K3 forward, K2 backward, 8 launches
+    each) and with every x2 upsample sent to aten's kernels instead (none):
+    the losses within tests/test_torch_port_step.py's metric bound (rtol
+    2e-4, atol 2e-5), each gradient (Adam's first moment over 1 - beta1)
+    within its check_step_gradients rule (3e-4 + 2% of the largest element;
+    at most 1e-4 of the elements past it, none past 5 times it; cosine over
+    all > 0.9999), parameters within 2.5*lr and running statistics at rtol
+    1e-4, atol 1e-5."""
+    from ramdsir_tpu_torch.config import TrainConfig
+    from ramdsir_tpu_torch.models import unet
+
+    cfg = TrainConfig(dataset="fundus", domain_idxs=(1, 2, 3), test_domain_idx=0, ram=True, rec=True,
+                      is_out_domain=True, consistency=True, consistency_type="kd", image_size=64,
+                      device="cuda").resolve()
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        a, (ma,), ka = _fundus_steps(cfg, steps=1, deterministic=False)
+        monkeypatch.setattr(unet, "kernels_take", lambda x: False)
+        b, (mb,), kb = _fundus_steps(cfg, steps=1, deterministic=False)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert ka == (8, 8) and kb == (0, 0)
+    assert ma.keys() == mb.keys()
+    for k in ma:
+        torch.testing.assert_close(ma[k].float(), mb[k].float(), rtol=2e-4, atol=2e-5, msg=k)
+    beta1 = a.optimizer.param_groups[0]["betas"][0]
+    dots = norm_a = norm_b = 0.0
+    for name, m in a.models.items():
+        other = dict(b.models[name].named_parameters())
+        for k, p in m.named_parameters():
+            got, want = (s.optimizer.state[t]["exp_avg"].double() / (1 - beta1) for s, t in ((a, p), (b, other[k])))
+            tol = 3e-4 + 2e-2 * float(want.abs().max())
+            err = (got - want).abs()
+            assert float((err > tol).double().mean()) <= 1e-4 and float(err.max()) <= 5 * tol, f"{name}.{k}"
+            dots += float((got * want).sum())
+            norm_a += float((got * got).sum())
+            norm_b += float((want * want).sum())
+        for k, v in m.state_dict().items():
+            tol = dict(rtol=1e-4, atol=1e-5) if "running" in k else dict(rtol=0, atol=2.5 * cfg.lr)
+            torch.testing.assert_close(v, b.models[name].state_dict()[k], **tol, msg=f"{name}.{k}")
+    assert dots / (norm_a * norm_b) ** 0.5 > 0.9999
 
 
 # --- the single-card variants ---------------------------------------------------------
@@ -660,7 +762,7 @@ def test_remat_on_card_is_bit_equal_under_deterministic(gen):
 
     base = dict(dataset="fundus", domain_idxs=(1, 2, 3), test_domain_idx=0, ram=True, rec=True, is_out_domain=True,
                 consistency=True, consistency_type="kd", image_size=64, device="cuda")
-    (a, ma, _), (b, mb, _) = (_deterministic_steps(TrainConfig(**base, remat=r).resolve()) for r in (False, True))
+    (a, ma, _), (b, mb, _) = (_fundus_steps(TrainConfig(**base, remat=r).resolve()) for r in (False, True))
     for x, y in zip(ma, mb):
         assert x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
     for name, m in a.models.items():

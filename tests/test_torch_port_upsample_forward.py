@@ -97,6 +97,32 @@ def test_function_on_cpu_keeps_aten_forward_and_launches_nothing():
         Upsample2x.apply(torch.zeros(1, 2, 4, 4, device="meta"))
 
 
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_default_upsample_on_cpu_is_aten_both_ways(dtype, layout):
+    """Without deterministic mode, `models.unet.upsample2x` on a CPU tensor
+    is `F.interpolate` forward and backward, bit for bit, and launches
+    neither kernel (the host counters stay); a channels-last input gives a
+    channels-last output, as aten's own does."""
+    from ramdsir_tpu_torch.models.unet import upsample2x
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    fmt = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+    x = _x((2, 8, 6, 10), torch.float32, seed=3).to(dtype).contiguous(memory_format=fmt)
+    g = _x((2, 8, 12, 20), torch.float32, seed=4).to(dtype)
+    assert not upsample.kernels_take(x)
+    before = (upsample.launches, upsample.forward_launches)
+    out = {}
+    for name, fn in (("port", upsample2x), ("aten", _aten)):
+        xi = x.clone().requires_grad_(True)
+        y = fn(xi)
+        out[name] = (y, *torch.autograd.grad(y, xi, g))
+    (y, dx), (want_y, want_dx) = out["port"], out["aten"]
+    assert y.dtype == dtype and torch.equal(y, want_y) and torch.equal(dx, want_dx)
+    assert (upsample.launches, upsample.forward_launches) == before
+    assert y.is_contiguous(memory_format=fmt) and y.is_contiguous() == (layout == "nchw")
+
+
 def test_wrappers_refuse_what_they_cannot_take():
     for fn in (upsample2x_forward, upsample2x_backward):
         name = fn.__name__
