@@ -219,10 +219,7 @@ training and in eval of the main_path and prostate_path runs, float32
 and bfloat16, and at the largest shape), and the result line.  Every run's
 launches are the kernels' own counts on the card (`read_launches`): each
 kernel adds one to a device counter as it runs, so a graph replay counts
-and a launch recorded into a graph that never runs does not;
-`host_launches` are the wrappers' counts on the host over the same run
-(eager launches and each launch recorded into a graph, once; K3's with
-eval's).
+and a launch recorded into a graph that never runs does not.
 Run artefacts go to chiprun_out/chip_smoke/ (prostate: chip_smoke/prostate/);
 the .pth and .ckpt files, the NIfTI volumes, the PNGs and the .npy slices are
 deleted at exit.
@@ -289,37 +286,25 @@ def sync(torch):
         torch.cuda.synchronize()
 
 
-def zero_launches(torch):
-    """Every launch count to 0 before a run: the wrappers' counts on the
-    host and the kernels' own counts on the card."""
-    from ramdsir_tpu_torch.ops import batch_norm, ram_mix, upsample
+def zero_launches():
+    """Every kernel's launch count on the card to 0 before a run."""
+    from ramdsir_tpu_torch.ops import cuda_build
 
-    if torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-    ram_mix.launches, upsample.launches, upsample.forward_launches = 0, 0, 0
-    batch_norm.launches, batch_norm.backward_launches = 0, 0
-    ram_mix.launches_by_path.update(dict.fromkeys(ram_mix.launches_by_path, 0))
-    ram_mix.zero_device_launches()
-    upsample.zero_device_launches()
-    batch_norm.zero_device_launches()
+    cuda_build.zero_launch_counts()
 
 
-def read_launches(torch):
+def read_launches():
     """The launches since `zero_launches` as the kernels counted them on the
     card while they ran, CUDA graph replays included: K1 (`k1`, and
     `k1_paths`, the paths with any), K2 (`k2`), K3 (`k3`) and the batch
-    norm's four kernels (`bn`, by kernel); and under `host` the wrappers'
-    counts, which see a launch recorded into a graph once and none of its
-    replays (`bn`: forward and backward calls)."""
-    from ramdsir_tpu_torch.ops import batch_norm, ram_mix, upsample
+    norm's four kernels (`bn`, by kernel)."""
+    from ramdsir_tpu_torch.ops import cuda_build
 
-    if torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-    paths, up = ram_mix.device_launches(), upsample.device_launches()
+    counts = cuda_build.launch_counts()
+    of = lambda lib: {k.split(".", 1)[1]: n for k, n in counts.items() if k.startswith(lib + ".")}
+    paths, up = of("ram_mix"), of("upsample2x")
     return dict(k1=sum(paths.values()), k1_paths={p: k for p, k in paths.items() if k}, k2=up["backward"],
-                k3=up["forward"], bn=batch_norm.device_launches(),
-                host=dict(k1=ram_mix.launches, k2=upsample.launches, k3=upsample.forward_launches,
-                          bn=[batch_norm.launches, batch_norm.backward_launches]))
+                k3=up["forward"], bn=of("batch_norm"))
 
 
 @contextlib.contextmanager
@@ -328,19 +313,18 @@ def eval_launches():
     launches apart from the steps': yields a dict whose `k2` and `k3` are
     the launches inside the evals so far and whose `in_eval` is true while
     one runs."""
-    from ramdsir_tpu_torch.ops import upsample
     from ramdsir_tpu_torch.train import loop
 
     evaluate, seen = loop.evaluate_target, dict(k2=0, k3=0, in_eval=False)
 
     def counting(*args, **kwargs):
-        before, seen["in_eval"] = upsample.device_launches(), True
+        before, seen["in_eval"] = read_launches(), True
         try:
             return evaluate(*args, **kwargs)
         finally:
-            after = upsample.device_launches()
-            seen["k2"] += after["backward"] - before["backward"]
-            seen["k3"] += after["forward"] - before["forward"]
+            after = read_launches()
+            seen["k2"] += after["k2"] - before["k2"]
+            seen["k3"] += after["k3"] - before["k3"]
             seen["in_eval"] = False
 
     with mock.patch.object(loop, "evaluate_target", counting):
@@ -349,11 +333,9 @@ def eval_launches():
 
 def upsample_fields(counts, eval_counts):
     """K2's and K3's launches of a run (`read_launches`' counts, `eval_counts`
-    from `eval_launches`): in the steps, in the evals, and the wrappers'
-    counts."""
+    from `eval_launches`): in the steps and in the evals."""
     return dict(k2_launches=counts["k2"] - eval_counts["k2"], k3_launches=counts["k3"] - eval_counts["k3"],
-                k2_eval_launches=eval_counts["k2"], k3_eval_launches=eval_counts["k3"],
-                k2_host_launches=counts["host"]["k2"], k3_host_launches=counts["host"]["k3"])
+                k2_eval_launches=eval_counts["k2"], k3_eval_launches=eval_counts["k3"])
 
 
 def check_upsample(phase, entry, steps):
@@ -584,9 +566,9 @@ def phase_kernel(torch, tram, ram_mix, bw):
     floor_ms_clean_flush = cuda_time_ms(spin, flush=clean_flush)
     kernel_floor_ms = kernel_time_ms(spin, "spin", flush=flush)
     for name, case in kernel_cases(torch, tram, ram_mix, gen):
-        by_path = dict(ram_mix.launches_by_path)
+        zero_launches()
         got, before = run_mix(ram_mix.mix_spectrum, case)
-        path = [p for p, k in ram_mix.launches_by_path.items() if k != by_path[p]]
+        path = list(read_launches()["k1_paths"])
         want, _ = run_mix(ram_mix.mix_spectrum_plain, case)
         torch.cuda.synchronize()
         if path != [case["path"]]:
@@ -630,13 +612,10 @@ def phase_kernel(torch, tram, ram_mix, bw):
 
             if case["delta"]:
                 case["_re"], case["_im"] = case["z"].real.contiguous(), case["z"].imag.contiguous()
-            launches_before, by_path = ram_mix.launches, dict(ram_mix.launches_by_path)
             ms = cuda_time_ms(lambda: timed(ram_mix.mix_spectrum), flush=flush)
             kernel_ms = kernel_time_ms(lambda: timed(ram_mix.mix_spectrum), "mix_", flush=flush)
             ms_clean_flush = cuda_time_ms(lambda: timed(ram_mix.mix_spectrum), flush=clean_flush)
             plain_ms = cuda_time_ms(lambda: timed(ram_mix.mix_spectrum_plain), flush=flush)
-            ram_mix.launches = launches_before  # comparison launches do not count
-            ram_mix.launches_by_path.update(by_path)
             entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes"
                          if nbytes / bw >= flops / PEAK_F32_FLOPS else "operations",
                          bytes=nbytes, floor_ms=floor_ms, kernel_ms=kernel_ms,
@@ -739,13 +718,13 @@ def phase_main_path(torch, np, ram_mix, arrays, testset):
         )
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        zero_launches(torch)
+        zero_launches()
         t0 = time.perf_counter()
         with eval_launches() as eval_counts:
             summary = fit(cfg, max_steps=steps, pipeline=pipe, testset=testset)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = read_launches(torch)
+        counts = read_launches()
         launches, paths = counts["k1"], counts["k1_paths"]
         peak = torch.cuda.max_memory_allocated()
         rows = [json.loads(line) for line in open(os.path.join(run_dir, "log", "metrics.jsonl"))]
@@ -761,8 +740,7 @@ def phase_main_path(torch, np, ram_mix, arrays, testset):
         evals = [r["eval/avg_dice"] for r in rows if "eval/avg_dice" in r]
         entry = dict(
             run=name, steps=summary["steps"], k1_launches=launches, k1_paths=paths,
-            k1_host_launches=counts["host"]["k1"], bn_launches=counts["bn"], bn_host_launches=counts["host"]["bn"],
-            **upsample_fields(counts, eval_counts), losses_finite=finite,
+            bn_launches=counts["bn"], **upsample_fields(counts, eval_counts), losses_finite=finite,
             first_loss=rows[0]["loss/loss"], last_loss=[r for r in rows if "loss/loss" in r][-1]["loss/loss"],
             median_step_ms=summary["median_step_ms"], images_per_sec=summary["images_per_sec"],
             peak_memory_bytes=peak, wall_s=wall, batch=sum(cfg.batch_size_list), image_size=S,
@@ -842,11 +820,11 @@ def step_from_seed(torch, ram_mix, cfg, pipe, row, draws, plain=False, load=None
     if load:
         load_checkpoint(load, state)
     step = make_train_step(cfg, total_iters=1000, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data)
-    before = ram_mix.launches
+    before = read_launches()["k1"]
     with mock.patch.object(ram_mix, "mix_spectrum", ram_mix.mix_spectrum_plain) if plain else contextlib.nullcontext():
         m = step(state, row, draws=draws)
     sd = {f"{n}.{k}": v.detach().clone() for n, mod in state.models.items() for k, v in mod.state_dict().items()}
-    return {k: float(v) for k, v in m.items()}, sd, ram_mix.launches - before
+    return {k: float(v) for k, v in m.items()}, sd, read_launches()["k1"] - before
 
 
 def step_distance(torch, a, b):
@@ -966,10 +944,10 @@ def phase_resume(torch, np, ram_mix, arrays, testset, steps_done):
     floor = step_distance(torch, one["again"], one["original"])[1]
     forward_equal = loss_rel == 0.0 and stat_err == 0.0
 
-    zero_launches(torch)
+    zero_launches()
     summary = fit(dataclasses.replace(cfg, checkpoint_resume=src), max_steps=steps_done + RESUME_STEPS,
                   pipeline=pipe, testset=testset)
-    counts = read_launches(torch)
+    counts = read_launches()
     launches, paths = counts["k1"], counts["k1_paths"]
     rows = [json.loads(line) for line in open(os.path.join(run_dir, "log", "metrics.jsonl"))]
     lrs = [(r["step"], r["lr"]) for r in rows if "lr" in r]
@@ -979,7 +957,6 @@ def phase_resume(torch, np, ram_mix, arrays, testset, steps_done):
                  step_running_stats_bit_equal=stat_err == 0.0, step_params_max_abs=param_err,
                  step_params_bit_equal=param_err == 0.0, same_state_params_max_abs=floor, params_tol=2.5 * cfg.lr,
                  resumed_steps=summary["steps"] - steps_done, k1_launches=launches, k1_paths=paths,
-                 k1_host_launches=counts["host"]["k1"],
                  first_lr=lrs[0] if lrs else None, expected_lr=[steps_done, want_lr])
     emit("resume", **entry)
     if not file_equal or differing:
@@ -1139,13 +1116,13 @@ def phase_prostate_path(torch, np, ram_mix, prostate, data_root, bf16_beside=Non
     )
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_launches(torch)
+    zero_launches()
     t0 = time.perf_counter()
     with eval_launches() as eval_counts:
         summary = fit(cfg, max_steps=steps, pipeline=pipe)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_launches(torch)
+    counts = read_launches()
     launches, paths = counts["k1"], counts["k1_paths"]
     peak = torch.cuda.max_memory_allocated()
     rows = [json.loads(line) for line in open(os.path.join(run_dir, "log", "metrics.jsonl"))]
@@ -1163,8 +1140,8 @@ def phase_prostate_path(torch, np, ram_mix, prostate, data_root, bf16_beside=Non
     timing = summary["eval_timing"]
     entry = dict(
         run="prostate_bf16" if bf16 else "prostate", steps=summary["steps"], k1_launches=launches, k1_paths=paths,
-        k1_host_launches=counts["host"]["k1"], bn_launches=counts["bn"], bn_host_launches=counts["host"]["bn"],
-        **upsample_fields(counts, eval_counts), losses_finite=finite, compute_dtype=cfg.compute_dtype,
+        bn_launches=counts["bn"], **upsample_fields(counts, eval_counts), losses_finite=finite,
+        compute_dtype=cfg.compute_dtype,
         predict_dtype=cfg.predict_dtype,
         first_loss=steps_logged[0]["loss/loss"], last_loss=steps_logged[-1]["loss/loss"],
         median_step_ms=summary["median_step_ms"], images_per_sec=summary["images_per_sec"],
@@ -1533,7 +1510,7 @@ def phase_png_tree(torch, np, ram_mix):
 
     # the train CLI: one epoch of the reference configuration, its eval
     run_dir = os.path.join(PNG_OUT, "run")
-    zero_launches(torch)
+    zero_launches()
     t0 = time.perf_counter()
     summary = train_main(["--data_root", data_root, "--dataset", "fundus", "--domain_idxs", "1,2,3",
                           "--test_domain_idx", "0", "--ram", "--rec", "--consistency", "--consistency_type", "kd",
@@ -1541,7 +1518,7 @@ def phase_png_tree(torch, np, ram_mix):
                           "--device", DEVICE])
     sync(torch)
     train_s = time.perf_counter() - t0
-    k1 = read_launches(torch)["k1"]
+    k1 = read_launches()["k1"]
     timing = summary["eval_timing"]
 
     # the eval CLI with --save_result: every overlay decodes to what was written
@@ -1611,7 +1588,7 @@ def host_fit(torch, np, ram_mix, name, cfg, steps=None):
     sync(torch)
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    zero_launches(torch)
+    zero_launches()
     errs, written, write = [], {}, png.write
 
     def recording_write(path, array, **kw):
@@ -1633,7 +1610,7 @@ def host_fit(torch, np, ram_mix, name, cfg, steps=None):
     grid_paths = [p for p in written if os.sep + "images" + os.sep in p]
     round_trip = sum(np.array_equal(png.decode(p).array, written[p]) for p in grid_paths)
     evals = [r["eval/avg_dice"] for r in rows if "eval/avg_dice" in r]
-    counts = read_launches(torch)
+    counts = read_launches()
     paths = counts["k1_paths"]
     entry = dict(
         run=name, loader=cfg.loader, dataset=cfg.dataset, steps=summary["steps"], epochs_run=len(epochs),
@@ -1783,14 +1760,14 @@ def phase_k2(torch, bw, shapes, forward_shapes):
     for shape, dtype in shapes:
         n, c, h, w = shape
         g = torch.randn((n, c, 2 * h, 2 * w), generator=gen, device="cuda").to(dtype)
-        before = upsample.launches
+        zero_launches()
         got = upsample.upsample2x_backward(g)
         want = upsample.upsample2x_backward_plain(g)
         lib = lambda x=g: torch.ops.aten.upsample_bilinear2d_backward(x, [2 * h, 2 * w], list(shape), False, 2.0, 2.0)
         ref, ref32 = lib(), lib(g.float())
         torch.cuda.synchronize()
-        if upsample.launches != before + 1:
-            raise SystemExit(f"K2 at {shape}: {upsample.launches - before} launches for one call")
+        if read_launches()["k2"] != 1:
+            raise SystemExit(f"K2 at {shape}: {read_launches()['k2']} launches for one call")
         err = float((got.float() - want.float()).abs().max())
         lib_err = float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
         lib32_err = float((got.float() - ref32).abs().max() / ref32.abs().max())
@@ -1812,14 +1789,14 @@ def phase_k2(torch, bw, shapes, forward_shapes):
     out3 = {}
     for shape, dtype in forward_shapes:
         x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-        before = upsample.forward_launches
+        zero_launches()
         got = upsample.upsample2x_forward(x)
         want = upsample.upsample2x_forward_plain(x)
         lib = lambda t=x: torch.ops.aten.upsample_bilinear2d.vec(t, None, False, [2.0, 2.0])
         ref, ref32 = lib(), lib(x.float())
         torch.cuda.synchronize()
-        if upsample.forward_launches != before + 1:
-            raise SystemExit(f"K3 at {shape}: {upsample.forward_launches - before} launches for one call")
+        if read_launches()["k3"] != 1:
+            raise SystemExit(f"K3 at {shape}: {read_launches()['k3']} launches for one call")
         err = float((got.float() - want.float()).abs().max())
         scale = float(x.float().abs().max()) if dtype == torch.float32 else float(ref32.abs().max())
         lib32_err = float((got.float() - ref32).abs().max()) / scale
@@ -1949,16 +1926,16 @@ def phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, prostate_
         for rep in DET_RUNS:
             cfg = dataclasses.replace(cfg0, save_path=os.path.join(root, rep), deterministic=rep.startswith("det"))
             shutil.rmtree(cfg.save_path, ignore_errors=True)
-            zero_launches(torch)
+            zero_launches()
             with mock.patch.object(upsample, "upsample2x_backward", recording), \
                     mock.patch.object(upsample, "upsample2x_forward", recording_forward), \
                     eval_launches() as seen:
                 eval_now[0] = seen
                 summary = fit(cfg, max_steps=DET_STEPS, pipeline=make_pipe(cfg), testset=data)
-            counts = read_launches(torch)
+            counts = read_launches()
             rows = [json.loads(line) for line in open(os.path.join(cfg.save_path, "log", "metrics.jsonl"))]
             out[rep] = dict(summary=summary, k1=counts["k1"], k2=counts["k2"] - seen["k2"], k3=counts["k3"] - seen["k3"],
-                            k2_eval=seen["k2"], k3_eval=seen["k3"], host=counts["host"],
+                            k2_eval=seen["k2"], k3_eval=seen["k3"],
                             losses=[{k: v for k, v in r.items() if k.startswith("loss/")} for r in rows if "loss/loss" in r],
                             state=read_checkpoint(summary["resume_checkpoint"])["state"])
         a, b = out["deterministic"], out["deterministic_again"]
@@ -1983,7 +1960,6 @@ def phase_deterministic(torch, np, ram_mix, arrays, testset, prostate, prostate_
                      k3_launches={rep: out[rep]["k3"] for rep in DET_RUNS},
                      k2_eval_launches={rep: out[rep]["k2_eval"] for rep in DET_RUNS},
                      k3_eval_launches={rep: out[rep]["k3_eval"] for rep in DET_RUNS},
-                     host_launches={rep: out[rep]["host"] for rep in DET_RUNS},
                      median_step_ms=med, mode_cost_ms=on - off, mode_cost_share=(on - off) / off,
                      reloaded_step_params_max_abs=param_err, reloaded_step_losses_max_rel=loss_rel,
                      reloaded_step_running_stats_max_abs=stat_err,
@@ -2025,12 +2001,12 @@ def scan_fit(torch, ram_mix, cfg, pipe, steps, testset):
     from ramdsir_tpu_torch.train.loop import fit
 
     shutil.rmtree(cfg.save_path, ignore_errors=True)
-    zero_launches(torch)
+    zero_launches()
     with eval_launches() as eval_counts:
         summary = fit(cfg, max_steps=steps, pipeline=pipe, testset=testset)
-    got = read_launches(torch)
+    got = read_launches()
     counts = dict(k1=got["k1"], k2=got["k2"] - eval_counts["k2"], k3=got["k3"] - eval_counts["k3"],
-                  k2_eval=eval_counts["k2"], k3_eval=eval_counts["k3"], host=got["host"])
+                  k2_eval=eval_counts["k2"], k3_eval=eval_counts["k3"])
     rows = [json.loads(line) for line in open(os.path.join(cfg.save_path, "log", "metrics.jsonl"))]
     rows = [{k: v for k, v in r.items() if k != "t"} for r in rows if "loss/loss" in r or "lr" in r]
     return summary, counts, rows, read_checkpoint(summary["resume_checkpoint"])["state"]
@@ -2262,7 +2238,7 @@ def variant_fit(torch, np, ram_mix, name, cfg, pipe, steps, testset=None):
     sync(torch)
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    zero_launches(torch)
+    zero_launches()
     errs = []
     t0 = time.perf_counter()
     checked = GRAPH_WARMUP_STEPS
@@ -2270,14 +2246,14 @@ def variant_fit(torch, np, ram_mix, name, cfg, pipe, steps, testset=None):
         summary = fit(cfg, max_steps=steps, pipeline=pipe, testset=testset)
     sync(torch)
     wall = time.perf_counter() - t0
-    counts = read_launches(torch)
+    counts = read_launches()
     rows = [json.loads(line) for line in open(os.path.join(cfg.save_path, "log", "metrics.jsonl"))]
     losses = [{k: v for k, v in r.items() if k.startswith("loss/")} for r in rows if "loss/loss" in r]
     finite = len(losses) == steps and all(np.all(np.isfinite(list(r.values()))) for r in losses)
     evals = [r["eval/avg_dice"] for r in rows if "eval/avg_dice" in r]
     entry = dict(
         run=name, steps=summary["steps"], k1_launches=counts["k1"], k2_launches=counts["k2"],
-        k3_launches=counts["k3"], host_launches=counts["host"],
+        k3_launches=counts["k3"],
         k1_max_abs_err=max(float(e) for e in errs) if errs else None, k1_checked_steps=checked,
         losses_finite=finite,
         first_loss=losses[0]["loss/loss"], last_loss=losses[-1]["loss/loss"],
@@ -2550,7 +2526,7 @@ def ddp_rank(rank, device, job):
         dist.barrier()
         if on_card:
             torch.cuda.reset_peak_memory_stats(device)
-        zero_launches(torch)
+        zero_launches()
         errs = []
         with mock.patch.object(loop, "init_state", capture), mock.patch.object(train_steps, "all_reduce_grads", timed_grads), \
                 mock.patch.object(dist, "all_reduce", counted), k1_held_to_plain(torch, ram_mix, errs, 2):
@@ -2558,7 +2534,7 @@ def ddp_rank(rank, device, job):
                                testset=job["testset"] if rank == 0 else None)
         if on_card:
             torch.cuda.synchronize(device)
-        launches = read_launches(torch)["k1"]
+        launches = read_launches()["k1"]
         state = captured["state"]
         flat = torch.cat([t.detach().reshape(-1).float() for m in state.models.values()
                           for t in m.state_dict().values()])
@@ -2896,31 +2872,26 @@ def phase_build(ram_mix, upsample, batch_norm, native):
     """Build K1's, K2/K3's and the batch norm's libraries and the two host
     libraries and, beside them, ask ptxas for each kernel's registers and
     spills (six nvcc and two g++ processes, started together)."""
+    from ramdsir_tpu_torch.ops import cuda_build
+
     t0 = time.perf_counter()
     sources = {"ram_mix": ram_mix.SOURCE, "upsample2x": upsample.SOURCE, "batch_norm": batch_norm.SOURCE}
-    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(4) as pool:
+    libraries = {"k1": ram_mix.LIBRARY, "k2": upsample.LIBRARY, "bn": batch_norm.LIBRARY, "host": native.POSTPROC,
+                 "png": native.PNG}
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(libraries)) as pool:
         ptxas = {
             name: subprocess.Popen(
-                [ram_mix._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                [cuda_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                  "-Xptxas", "-v", "-cubin", "-o", os.path.join(tmp, f"{name}.cubin"), src],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
             for name, src in sources.items()
         }
         try:
-            builds = {
-                "k1": pool.submit(timed_call, ram_mix.build_library),
-                "k2": pool.submit(timed_call, upsample.build_library),
-                "bn": pool.submit(timed_call, batch_norm.build_library),
-                "host": pool.submit(timed_call, native.build_library),
-                "png": pool.submit(timed_call, lambda: native.build_library(native.PNG_SOURCE)),
-            }
+            builds = {k: pool.submit(timed_call, lib.path) for k, lib in libraries.items()}
             done = {k: f.result() for k, f in builds.items()}
-            ram_mix._library()
-            upsample._library()
-            batch_norm._library()
-            native.library()
-            native.png_library()
+            for lib in libraries.values():
+                lib.load()
         finally:
             ptxas_out = "".join(p.communicate(timeout=600)[0] for p in ptxas.values())
     # ptxas prints each kernel's name, then its spills, then its registers
@@ -2940,7 +2911,7 @@ def phase_build(ram_mix, upsample, batch_norm, native):
     emit("build", library=os.path.relpath(done["k1"][0], REPO), seconds=time.perf_counter() - t0,
          k1_seconds=done["k1"][1], k2_library=os.path.relpath(done["k2"][0], REPO), k2_seconds=done["k2"][1],
          bn_library=os.path.relpath(done["bn"][0], REPO), bn_seconds=done["bn"][1],
-         nvcc_flags=list(ram_mix.NVCC_FLAGS), ptxas=info, host_library=os.path.relpath(done["host"][0], REPO),
+         nvcc_flags=list(cuda_build.NVCC_FLAGS), ptxas=info, host_library=os.path.relpath(done["host"][0], REPO),
          host_library_seconds=done["host"][1], png_library=os.path.relpath(done["png"][0], REPO),
          png_library_seconds=done["png"][1], host_flags=[native.CXX, *native.CXX_FLAGS])
 
@@ -3072,7 +3043,7 @@ def run_phases(torch, card, name, bw):
             variants = {name: r["k1_launches"] for name, r in host_runs.items()}
         line["kernels"].append({
             "name": f"ram_mix[{label}]", "route": "cuda", "source": SOURCE_REL, "replaces": REPLACES,
-            "launches": runs[run]["k1_launches"], "host_launches": runs[run]["k1_host_launches"],
+            "launches": runs[run]["k1_launches"],
             "launches_by_run": {run: runs[run]["k1_launches"], **variants},
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
@@ -3083,7 +3054,6 @@ def run_phases(torch, card, name, bw):
     line["kernels"].append({
         "name": f"ram_mix[band,delta]@prostate {PB}x{C}x{PS}x{PS}", "route": "cuda", "source": SOURCE_REL,
         "replaces": REPLACES, "launches": prostate_run["k1_launches"],
-        "host_launches": prostate_run["k1_host_launches"],
         "launches_by_run": {"prostate": prostate_run["k1_launches"], **variant_launches["prostate"],
                             **ddp_launches["prostate"],
                             **{f"scan_prostate_{m}": e["k1"]
@@ -3109,7 +3079,6 @@ def run_phases(torch, card, name, bw):
             line["kernels"].append({
                 "name": f"{kernel}[{run} step: 8 shapes]", "route": "cuda", "source": SOURCE_K2,
                 "replaces": REPLACES_K2, "launches": entry[f"{launches}_launches"],
-                "host_launches": entry[f"{launches}_host_launches"],
                 "eval_launches": entry[f"{launches}_eval_launches"],
                 "max_abs_err": max(c["max_abs_err"] for c in step_cases), "ms": total("ms"),
                 "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"), "bound_by": "bytes",

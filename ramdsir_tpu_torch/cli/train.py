@@ -1,8 +1,8 @@
 """Train CLI: the JAX package's flags (`ramdsir_tpu/cli/train.py`) plus
 --device.  Every variant runs.
 
---num_devices N > 1 trains data-parallel over N ranks that this process
-launches (`parallel/distributed.py`): NCCL on cuda:0..N-1 (one GPU a rank;
+--num_devices N > 1 trains data-parallel over N ranks that this
+process starts (`parallel/distributed.py`): NCCL on cuda:0..N-1 (one GPU a rank;
 more ranks than visible GPUs raise), or with --device cpu N gloo ranks on
 the CPU.  Without the flag it is every visible CUDA device, as the JAX
 package takes every device; on the CPU, or on a host with one card, that is

@@ -320,7 +320,7 @@ class ProcessFusedMultiDomainLoader(FusedMultiDomainLoader):
             return
         from ramdsir_tpu_torch import native
 
-        native.build_library(native.PNG_SOURCE)
+        native.PNG.path()
         ctx = multiprocessing.get_context("forkserver")
         self._q_in = ctx.Queue()
         self._q_out = ctx.Queue()

@@ -38,7 +38,7 @@ computed in float32 from the bfloat16 values, weight, bias and running
 statistics stay float32, and the output is bfloat16, as in the JAX package
 (`ramdsir_tpu/models/norm.py:76-137`).  The normalisation then follows JAX's
 order, rounding four times ((x - mean), * inv, * scale, + bias;
-`_low_precision_norm`): a fused kernel rounds once, and a
+`_apply_norm`): a fused kernel rounds once, and a
 one-rounding bfloat16 forward lies further from JAX's bfloat16 forward than
 that lies from float32 (tests/test_torch_port_bf16.py).
 
@@ -94,15 +94,16 @@ def _train_norm(
     `ops.batch_norm.grouped_batch_norm`."""
     full = n_stats is None or n_stats >= x.shape[0]
     real = x if full else x[:n_stats]
+    n = real.numel() // real.shape[1]
     # the statistics need their own gradient only when they come from a
     # part of the rows; the full case's backward accounts for them
     with torch.set_grad_enabled(torch.is_grad_enabled() and not full):
-        mean, var = _low_precision_stats(real)
-    update_running(running_mean, running_var, mean, var, real.numel() / real.shape[1], momentum)
+        mean, var = _moments(*_sums(real, (0, 2, 3)), n)
+    update_running(running_mean, running_var, mean, var, float(n), momentum)
     inv = torch.rsqrt(var + eps)
     if full:
         return _LowPrecisionBatchNorm.apply(x, weight, bias, mean, inv, eps)
-    return _low_precision_norm(x, weight, bias, mean, inv)
+    return _apply_norm(x, weight, bias, mean, inv)
 
 
 def _sums(x: torch.Tensor, dims) -> tuple:
@@ -114,6 +115,13 @@ def _sums(x: torch.Tensor, dims) -> tuple:
     return s1, torch.linalg.vector_norm(x, 2, dims, dtype=torch.float32).square()
 
 
+def _moments(s1: torch.Tensor, s2: torch.Tensor, n):
+    """(E[x], max(E[x^2] - E[x]^2, 0)) from the sums of x and x^2 over n
+    values, in the sums' dtype: the JAX package's batch statistics."""
+    mean = s1 / n
+    return mean, torch.clamp(s2 / n - mean.square(), min=0.0)
+
+
 def _global_moments(s1: torch.Tensor, s2: torch.Tensor, count: torch.Tensor):
     """(mean, var, count) over the process group from each rank's (G, C)
     sums and (G,) counts: one all-reduce, in float64 (a count is exact
@@ -121,24 +129,16 @@ def _global_moments(s1: torch.Tensor, s2: torch.Tensor, count: torch.Tensor):
     c = s1.shape[-1]
     tot = all_reduce_sum(torch.cat([s1.double(), s2.double(), count.double()[:, None]], dim=1))
     n = tot[:, -1]
-    safe = torch.clamp(n, min=1.0)[:, None]
-    mean = tot[:, :c] / safe
-    var = torch.clamp(tot[:, c : 2 * c] / safe - torch.square(mean), min=0.0)
+    mean, var = _moments(tot[:, :c], tot[:, c : 2 * c], torch.clamp(n, min=1.0)[:, None])
     return mean.float(), var.float(), n
-
-
-def _update_running_global(running_mean, running_var, mean, var, n, momentum) -> None:
-    """`update_running` with the group's count n (a tensor)."""
-    with torch.no_grad():
-        unbiased = var * (n / torch.clamp(n - 1.0, min=1.0)).float()
-        running_mean.mul_(1.0 - momentum).add_(mean, alpha=momentum)
-        running_var.mul_(1.0 - momentum).add_(unbiased, alpha=momentum)
 
 
 def _apply_norm(x, weight, bias, mean, inv) -> torch.Tensor:
     """(x - mean) * inv * weight + bias of x (N, C, H, W) with (C,) or
     (N, C) statistics and affine: float32 in one product, bfloat16 in the
-    JAX package's four roundings (`_low_precision_norm`)."""
+    JAX package's four roundings (`ramdsir_tpu/models/norm.py:120-137`),
+    each operand and each product rounded to x.dtype, which reproduces its
+    bits (cuDNN's fused kernel rounds once)."""
     v = (lambda t: t[None, :, None, None]) if mean.ndim == 1 else (lambda t: t[:, :, None, None])
     if x.dtype != torch.float32:
         c = lambda t: v(t.to(x.dtype))
@@ -167,9 +167,8 @@ def _sync_train_norm(
     count = torch.full((halves,), real[0].numel() / x.shape[1], dtype=torch.float64, device=x.device)
     mean, var, n = _global_moments(torch.stack([s[0] for s in sums]), torch.stack([s[1] for s in sums]), count)
     inv = torch.rsqrt(var + eps)
-    if running_mean is not None:
-        for i in range(halves):
-            _update_running_global(running_mean, running_var, mean[i], var[i], n[i], momentum)
+    for i in range(halves):
+        update_running(running_mean, running_var, mean[i], var[i], n[i], momentum)
     return torch.cat([_apply_norm(h, weight, bias, mean[i], inv[i]) for i, h in enumerate(parts)])
 
 
@@ -184,32 +183,9 @@ def _adapted_norm(
     mean = (torch.sum(real, dim=dims, dtype=torch.float64) / n).float()[None, :, None, None]
     var = torch.sum(torch.square(real - mean), dim=dims, dtype=torch.float64) / n
     if x.dtype != torch.float32:
-        return _low_precision_norm(x, weight, bias, mean.reshape(-1), torch.rsqrt(var.float() + eps))
+        return _apply_norm(x, weight, bias, mean.reshape(-1), torch.rsqrt(var.float() + eps))
     scale = (weight.double() * torch.rsqrt(var + eps)).float()
     return (x - mean) * scale[None, :, None, None] + bias[None, :, None, None]
-
-
-def _low_precision_norm(
-    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor
-) -> torch.Tensor:
-    """The JAX package's normalisation of a bfloat16 x with float32
-    statistics (`ramdsir_tpu/models/norm.py:120-137`; inv = rsqrt(var +
-    eps)): (x - mean) * inv * scale + bias, each operand and each product
-    rounded to x.dtype, which reproduces its bits (cuDNN's fused kernel
-    rounds once)."""
-    c = lambda t: t.to(x.dtype)[None, :, None, None]
-    return (x - c(mean)) * c(inv) * c(weight) + c(bias)
-
-
-def _low_precision_stats(real: torch.Tensor):
-    """The JAX package's float32 batch statistics of a bfloat16 map: E[x]
-    and max(E[x^2] - E[x]^2, 0), summed in float32 from the bfloat16 values
-    (no float32 copy of the map)."""
-    n = real.numel() // real.shape[1]
-    dims = (0, 2, 3)
-    mean = torch.sum(real, dims, dtype=torch.float32) / n
-    mean2 = torch.linalg.vector_norm(real, 2, dims, dtype=torch.float32).square() / n
-    return mean, torch.clamp(mean2 - mean.square(), min=0.0)
 
 
 class _LowPrecisionBatchNorm(torch.autograd.Function):
@@ -223,7 +199,7 @@ class _LowPrecisionBatchNorm(torch.autograd.Function):
     def forward(ctx, x, weight, bias, mean, invstd, eps):
         ctx.save_for_backward(x, weight, mean, invstd)
         ctx.eps = eps
-        return _low_precision_norm(x, weight, bias, mean, invstd)
+        return _apply_norm(x, weight, bias, mean, invstd)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -250,7 +226,7 @@ class BatchNorm(nn.Module):
         """Eval-mode normalisation with the running statistics."""
         if x.dtype != torch.float32:
             inv = torch.rsqrt(self.running_var + self.eps)
-            return _low_precision_norm(x, self.weight, self.bias, self.running_mean, inv)
+            return _apply_norm(x, self.weight, self.bias, self.running_mean, inv)
         return F.batch_norm(
             x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps
         )

@@ -16,22 +16,18 @@ The kernels have no TPU counterpart: the JAX package's norms are XLA
 reductions (`ramdsir_tpu/models/norm.py`).  They replace cuDNN's NCHW
 train-mode batch norm, which spreads a channel over too few blocks, and the
 per-half and per-domain calls joined by torch.cat.  They are built with
-nvcc at first use on the card into `ramdsir_tpu_torch/_build/`
-(`ops/cuda_build.py`) and bound with ctypes.
+nvcc at first use on the card and bound with ctypes (`ops/cuda_build.py`).
 
 `grouped_batch_norm` takes the plain version for tensors on the CPU (the
 tests) and launches the kernels for CUDA tensors; a CUDA tensor they cannot
-take raises, nothing falls back.  `launches` counts forward calls (two
-kernels each) on the host, `backward_launches` backward calls (two more);
-a call recorded into a CUDA graph counts there once.  Each kernel also adds
-one to a counter on its device each time it runs, a graph's replays
-included: `device_launches()` reads those counts and
-`zero_device_launches()` sets them to 0.
+take raises, nothing falls back.  Each of the four kernels counts its runs
+on the card, a graph's replays included: `cuda_build.launch_counts()`
+under `batch_norm.stats`, `.forward`, `.backward_reduce` and `.backward`.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -43,12 +39,13 @@ BLOCK = 256  # threads a block: a unit holds a multiple of it
 UNITS_PER_SM = 32  # the chunking aims at this many units a streaming multiprocessor
 MAX_UNIT_VECTORS = 16 * BLOCK  # at most 16 vectors a thread in a unit
 
-launches = 0  # forward calls on the card (stats + apply kernels)
-backward_launches = 0  # backward calls on the card (reduce + apply kernels)
-ENTRIES = ("stats", "forward", "backward_reduce", "backward")  # the slots of a device counter
-_device_counts: Dict[torch.device, torch.Tensor] = {}  # per device, (4,) int64: each kernel's own count
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LIBRARY = cuda_build.kernel_library(SOURCE, {
+    "batch_norm_forward_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _P,
+                                  _P, _P],
+    "batch_norm_backward_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+})
 _sms: Dict[torch.device, int] = {}
-_lib: Optional[ctypes.CDLL] = None
 
 
 class Layout(NamedTuple):
@@ -95,29 +92,20 @@ def check_layout(layout: Layout, n: int) -> None:
             raise ValueError(f"grouped_batch_norm: a group of {rows} rows takes statistics from {stat_rows}")
 
 
-def update_running(running_mean, running_var, mean, var, count: float, momentum: float) -> None:
+def update_running(running_mean, running_var, mean, var, count: Union[float, torch.Tensor], momentum: float) -> None:
     """new = (1-m)*old + m*batch, the variance made unbiased over `count`
-    values a channel; nothing when the running statistics are None."""
+    values a channel (a float, or a float64 tensor: a process group's count,
+    the factor rounded once to float32); nothing when the running statistics
+    are None."""
     if running_mean is None:
         return
     with torch.no_grad():
+        if isinstance(count, torch.Tensor):
+            unbias = (count / torch.clamp(count - 1.0, min=1.0)).float()
+        else:
+            unbias = count / max(count - 1.0, 1.0)
         running_mean.mul_(1.0 - momentum).add_(mean, alpha=momentum)
-        running_var.mul_(1.0 - momentum).add_(var * (count / max(count - 1.0, 1.0)), alpha=momentum)
-
-
-def device_launches() -> Dict[str, int]:
-    """How often each kernel (`ENTRIES`) ran on the card, summed over
-    devices (reading them waits for the devices)."""
-    totals = dict.fromkeys(ENTRIES, 0)
-    for counts in _device_counts.values():
-        for name, k in zip(ENTRIES, counts.tolist()):
-            totals[name] += k
-    return totals
-
-
-def zero_device_launches() -> None:
-    for counts in _device_counts.values():
-        counts.zero_()
+        running_var.mul_(1.0 - momentum).add_(var * unbias, alpha=momentum)
 
 
 # --- plain versions ----------------------------------------------------------------
@@ -185,25 +173,6 @@ def batch_norm_backward_plain(dy, x, layout: Layout, mean, invstd, weights):
 # --- the kernels ---------------------------------------------------------------------
 
 
-def build_library() -> str:
-    """Compile csrc/batch_norm.cu unless a library built from the same
-    source and flags exists; returns the library's path."""
-    return cuda_build.build_library(SOURCE)
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build_library())
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.batch_norm_forward_launch.argtypes = [p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, f, f, p, p, p,
-                                                  p, p]
-        lib.batch_norm_backward_launch.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, p, p]
-        lib.batch_norm_forward_launch.restype = lib.batch_norm_backward_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
 class Plan(NamedTuple):
     vec: bool  # 16-byte accesses (4 floats a vector), else 1 float a vector
     unit_vectors: int  # vectors a unit (chunk) of a channel
@@ -222,12 +191,6 @@ def plan(layout: Layout, c: int, hw: int, vec: bool, sms: int) -> Plan:
     f = min(max(-(-per_unit // BLOCK) * BLOCK, BLOCK), MAX_UNIT_VECTORS)
     ceil = lambda n: -(-n * qv // f)
     return Plan(vec, f, tuple(ceil(s) for _, s, _ in layout.groups), tuple(ceil(r) for r, _, _ in layout.groups))
-
-
-def _counter(dev) -> torch.Tensor:
-    if dev not in _device_counts:
-        _device_counts[dev] = cuda_build.device_counter(dev, len(ENTRIES))
-    return _device_counts[dev]
 
 
 def _plan_for(x: torch.Tensor, layout: Layout, *others: torch.Tensor) -> Plan:
@@ -271,19 +234,13 @@ def _forward_kernels(x, layout: Layout, weights, biases, running_means, running_
     partial = torch.empty((sum(p.stat_chunks) * c, 4), dtype=torch.float32, device=x.device)
     rows, stat_rows, slots = zip(*layout.groups)
     unbias = [s * h * w / max(s * h * w - 1.0, 1.0) for s in stat_rows]
-    counter = _counter(x.device)
-    with torch.cuda.device(x.device):
-        err = _library().batch_norm_forward_launch(
-            x.data_ptr(), y.data_ptr(), n, c, h * w, int(p.vec), p.unit_vectors, len(rows), _ints(rows),
-            _ints(stat_rows), _ints(slots), _ints(p.stat_chunks), _ints(p.chunks),
-            (ctypes.c_float * len(unbias))(*unbias), _ptrs(weights), _ptrs(biases), _ptrs(running_means),
-            _ptrs(running_vars), momentum, eps, partial.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-            counter.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"batch_norm forward kernels: launch failed, CUDA error {err}")
-    global launches
-    launches += 1
+    cuda_build.launch(
+        LIBRARY, "batch_norm_forward_launch", "batch_norm.stats", x.device,
+        x.data_ptr(), y.data_ptr(), n, c, h * w, int(p.vec), p.unit_vectors, len(rows), _ints(rows),
+        _ints(stat_rows), _ints(slots), _ints(p.stat_chunks), _ints(p.chunks),
+        (ctypes.c_float * len(unbias))(*unbias), _ptrs(weights), _ptrs(biases), _ptrs(running_means),
+        _ptrs(running_vars), momentum, eps, partial.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+    )
     return y, stats[0], stats[1]
 
 
@@ -295,18 +252,12 @@ def _backward_kernels(dy, x, layout: Layout, mean, invstd, weights):
     grads = torch.empty((2, layout.slots, c), dtype=torch.float32, device=x.device)
     partial = torch.empty((sum(p.chunks) * c, 2), dtype=torch.float32, device=x.device)
     rows, stat_rows, slots = zip(*layout.groups)
-    counter = _counter(x.device)
-    with torch.cuda.device(x.device):
-        err = _library().batch_norm_backward_launch(
-            dy.data_ptr(), x.data_ptr(), dx.data_ptr(), n, c, h * w, int(p.vec), p.unit_vectors, len(rows),
-            _ints(rows), _ints(stat_rows), _ints(slots), _ints(p.chunks), _ptrs(weights), _ptrs(list(grads[0])),
-            _ptrs(list(grads[1])), mean.data_ptr(), invstd.data_ptr(), partial.data_ptr(),
-            counter[2:].data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"batch_norm backward kernels: launch failed, CUDA error {err}")
-    global backward_launches
-    backward_launches += 1
+    cuda_build.launch(
+        LIBRARY, "batch_norm_backward_launch", "batch_norm.backward_reduce", x.device,
+        dy.data_ptr(), x.data_ptr(), dx.data_ptr(), n, c, h * w, int(p.vec), p.unit_vectors, len(rows),
+        _ints(rows), _ints(stat_rows), _ints(slots), _ints(p.chunks), _ptrs(weights), _ptrs(list(grads[0])),
+        _ptrs(list(grads[1])), mean.data_ptr(), invstd.data_ptr(), partial.data_ptr(),
+    )
     return dx, list(grads[0]), list(grads[1])
 
 

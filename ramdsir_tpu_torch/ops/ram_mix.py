@@ -3,19 +3,14 @@ PyTorch version.
 
 The kernel (`csrc/ram_mix.cu`) replaces the TPU kernel
 `ramdsir_tpu/ops/ram_pallas.py::_mix_kernel`.  It is built with nvcc into a
-shared library with a plain C interface at first use on the card, keyed on
-the source's hash, into `ramdsir_tpu_torch/_build/` (`ops/cuda_build.py`),
-and bound with ctypes.
+shared library with a plain C interface at first use on the card and bound
+with ctypes (`ops/cuda_build.py`).
 
 `mix_spectrum` is the only entry point.  It takes the plain version for
 tensors on the CPU (the tests) and launches the kernel for CUDA tensors; a
-CUDA tensor it cannot take raises, it never falls back.  `launches` counts
-the wrapper's launches on the host, so a run can show that it went through
-the kernel, and `launches_by_path` splits them by the kernel's code path
-(`_path`); a launch recorded into a CUDA graph counts there once.  The
-kernel itself adds one to a counter on its device each time it runs, a
-graph's replays included: `device_launches()` reads those counts by path
-and `zero_device_launches()` sets them to 0.
+CUDA tensor it cannot take raises, it never falls back.  The kernel counts
+its runs on the card by code path (`_path`), a graph's replays included:
+`cuda_build.launch_counts()["ram_mix.<path>"]`.
 
 Layouts (element strides, any memory order):
   re, im   (N, C, H, Wh) float32 planes of one rfft2 half-spectrum; they may
@@ -33,57 +28,19 @@ path's compact delta blocks and an element-strided path for the rest;
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Tuple
 
 import torch
 
 from ramdsir_tpu_torch.ops import cuda_build
-from ramdsir_tpu_torch.ops.cuda_build import NVCC_FLAGS
-from ramdsir_tpu_torch.ops.cuda_build import nvcc as _nvcc  # noqa: F401 (tools/k1_study.py)
 
 SOURCE = cuda_build.source_path("ram_mix.cu")
 FLT_MIN = float(torch.finfo(torch.float32).tiny)
 
 PATHS = ("strided", "full_vec", "delta_flat")  # the codes of ram_mix_launch
-launches = 0  # kernel launches; mix_spectrum adds one per launch
-launches_by_path = dict.fromkeys(PATHS, 0)
-_device_counts: Dict[torch.device, torch.Tensor] = {}  # per device, (len(PATHS),) int64: the kernel's own counts
-_lib: Optional[ctypes.CDLL] = None
-
-
-def build_library() -> str:
-    """Compile csrc/ram_mix.cu unless a library built from the same source
-    and flags exists; returns the library's path."""
-    return cuda_build.build_library(SOURCE)
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build_library())
-        fn = lib.ram_mix_launch
-        fn.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 8
-            + [ctypes.c_void_p] * 2
-        )
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def device_launches() -> Dict[str, int]:
-    """How often the kernel ran on the card, by path, summed over devices
-    (reading them waits for the devices)."""
-    totals = dict.fromkeys(PATHS, 0)
-    for counts in _device_counts.values():
-        for path, k in zip(PATHS, counts.tolist()):
-            totals[path] += k
-    return totals
-
-
-def zero_device_launches() -> None:
-    for counts in _device_counts.values():
-        counts.zero_()
+LIBRARY = cuda_build.kernel_library(SOURCE, {
+    "ram_mix_launch": [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 8,
+})
 
 
 def _band_rows(h: int, band: int, device) -> torch.Tensor:
@@ -236,22 +193,12 @@ def mix_spectrum(
 
 def _launch(path, re, im, amp_t, ratio, band, out_re, out_im, *, full, delta) -> None:
     """Launch one code path of K1 on tensors `mix_spectrum` has checked."""
-    global launches
     n, c, h, _ = re.shape
     rows, cols = amp_t.shape[-2:]
-    dev = re.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if dev not in _device_counts:
-        _device_counts[dev] = cuda_build.device_counter(dev, len(PATHS))
-    counter = _device_counts[dev][PATHS.index(path):]
-    with torch.cuda.device(dev):
-        err = _library().ram_mix_launch(
-            PATHS.index(path), re.data_ptr(), im.data_ptr(), amp_t.data_ptr(), ratio.data_ptr(),
-            out_re.data_ptr(), out_im.data_ptr(),
-            *re.stride(), *amp_t.stride(), *out_re.stride(),
-            n, c, rows, cols, band, h, int(full), int(delta), counter.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"ram_mix kernel launch failed: CUDA error {err}")
-    launches += 1
-    launches_by_path[path] += 1
+    cuda_build.launch(
+        LIBRARY, "ram_mix_launch", f"ram_mix.{path}", re.device,
+        PATHS.index(path), re.data_ptr(), im.data_ptr(), amp_t.data_ptr(), ratio.data_ptr(),
+        out_re.data_ptr(), out_im.data_ptr(),
+        *re.stride(), *amp_t.stride(), *out_re.stride(),
+        n, c, rows, cols, band, h, int(full), int(delta),
+    )

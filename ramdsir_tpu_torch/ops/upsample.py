@@ -11,25 +11,22 @@ forward: aten's nested bilinear form computed exactly, in place of aten's
 NCHW forward kernel, which spreads the planes over too few threads.
 Neither has a TPU counterpart: the JAX package's upsample
 (`jax.image.resize`) is differentiated by XLA.  They are built with nvcc at
-first use on the card into `ramdsir_tpu_torch/_build/` (`ops/cuda_build.py`)
-and bound with ctypes.
+first use on the card and bound with ctypes (`ops/cuda_build.py`).
 
 `upsample2x_forward` and `upsample2x_backward` take the plain versions for
 tensors on the CPU (the tests) and launch the kernels for CUDA tensors; a
-CUDA tensor they cannot take raises, they never fall back.  `launches`
-counts K2's launches on the host, `forward_launches` K3's; a launch
-recorded into a CUDA graph counts there once.  Each kernel also adds one to
-a counter on its device each time it runs, a graph's replays included:
-`device_launches()` reads those counts and `zero_device_launches()` sets
-them to 0.  `Upsample2x` is the upsample
-with both kernels on the card; `models/unet.upsample2x` takes it for every
+CUDA tensor they cannot take raises, they never fall back.  Each kernel
+counts its runs on the card, a graph's replays included:
+`cuda_build.launch_counts()["upsample2x.backward"]` (K2) and
+`["upsample2x.forward"]` (K3).  `Upsample2x` is the upsample with both
+kernels on the card; `models/unet.upsample2x` takes it for every
 tensor `kernels_take` accepts, and for every tensor while torch's
 deterministic mode is on.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,46 +35,12 @@ from ramdsir_tpu_torch.ops import cuda_build
 SOURCE = cuda_build.source_path("upsample2x.cu")
 DTYPES = (torch.float32, torch.bfloat16)  # the codes of the launch functions
 VEC_COLUMNS = {torch.float32: 4, torch.bfloat16: 8}  # input columns a thread takes on the 16-byte path
-
-launches = 0  # K2 launches; upsample2x_backward adds one per launch
-forward_launches = 0  # K3 launches; upsample2x_forward adds one per launch
-ENTRIES = ("upsample2x_backward_launch", "upsample2x_forward_launch")  # the slots of a device counter
-_device_counts: Dict[torch.device, torch.Tensor] = {}  # per device, (2,) int64: K2's and K3's own counts
-_lib: Optional[ctypes.CDLL] = None
-
-
-def build_library() -> str:
-    """Compile csrc/upsample2x.cu unless a library built from the same
-    source and flags exists; returns the library's path."""
-    return cuda_build.build_library(SOURCE)
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build_library())
-        for fn in (lib.upsample2x_backward_launch, lib.upsample2x_forward_launch):
-            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def device_launches() -> Dict[str, int]:
-    """How often K2 ("backward") and K3 ("forward") ran on the card, summed
-    over devices (reading them waits for the devices)."""
-    totals = {"backward": 0, "forward": 0}
-    for counts in _device_counts.values():
-        k2, k3 = counts.tolist()
-        totals["backward"] += k2
-        totals["forward"] += k3
-    return totals
-
-
-def zero_device_launches() -> None:
-    for counts in _device_counts.values():
-        counts.zero_()
+ENTRIES = {  # C entry: its counter
+    "upsample2x_backward_launch": "upsample2x.backward",
+    "upsample2x_forward_launch": "upsample2x.forward",
+}
+LIBRARY = cuda_build.kernel_library(SOURCE, dict.fromkeys(ENTRIES, [
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]))
 
 
 # --- plain versions ----------------------------------------------------------------
@@ -200,8 +163,6 @@ def upsample2x_backward(grad: torch.Tensor) -> torch.Tensor:
         return upsample2x_backward_plain(grad)
     out = torch.empty((n, c, h2 // 2, w2 // 2), dtype=grad.dtype, device=grad.device)
     _launch("upsample2x_backward_launch", grad, out)
-    global launches
-    launches += 1
     return out
 
 
@@ -217,8 +178,6 @@ def upsample2x_forward(x: torch.Tensor) -> torch.Tensor:
         return upsample2x_forward_plain(x)
     out = torch.empty((n, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
     _launch("upsample2x_forward_launch", x, out)
-    global forward_launches
-    forward_launches += 1
     return out
 
 
@@ -227,17 +186,8 @@ def _launch(entry: str, src: torch.Tensor, dst: torch.Tensor) -> None:
     input side (N, C, H, W) is the smaller of the two."""
     small = src if src.numel() <= dst.numel() else dst
     n, c, h, w = small.shape
-    dev = src.device
-    if dev not in _device_counts:
-        _device_counts[dev] = cuda_build.device_counter(dev, len(ENTRIES))
-    counter = _device_counts[dev][ENTRIES.index(entry):]
-    with torch.cuda.device(dev):
-        err = getattr(_library(), entry)(
-            DTYPES.index(src.dtype), int(vector_path(src, dst)), src.data_ptr(), dst.data_ptr(), n * c, h, w,
-            counter.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{entry.replace('_launch', '')} kernel launch failed: CUDA error {err}")
+    cuda_build.launch(LIBRARY, entry, ENTRIES[entry], src.device,
+                      DTYPES.index(src.dtype), int(vector_path(src, dst)), src.data_ptr(), dst.data_ptr(), n * c, h, w)
 
 
 class Upsample2x(torch.autograd.Function):

@@ -271,10 +271,9 @@ class ScanTrainSteps:
     the caches and Adam's moments), then one step is captured into a
     `torch.cuda.CUDAGraph` on that stream and every later step is a
     replay.  A capture that fails raises.  Elsewhere (the CPU, a process
-    group, one-row buffers) each step runs eagerly.  A kernel's wrapper
-    counts its launch once at the capture and not at a replay; the kernel's
-    own counter on the device (`ops.ram_mix.device_launches`) counts every
-    run.  `replays`, `capture_seconds` and `graph_pool_bytes` (device memory the
+    group, one-row buffers) each step runs eagerly.  The hand-written
+    kernels count their runs on the device, replays included
+    (`ops.cuda_build.launch_counts`).  `replays`, `capture_seconds` and `graph_pool_bytes` (device memory the
     capture reserved) describe the graph.
 
     Under a profiler the call shows as the span `ramdsir.train.window`,

@@ -14,7 +14,7 @@ import torch
 
 from ramdsir_tpu_torch.config import TrainConfig
 from ramdsir_tpu_torch.models.norm import BatchNorm, DomainSpecificBatchNorm
-from ramdsir_tpu_torch.ops import ram_mix
+from ramdsir_tpu_torch.ops import cuda_build
 from ramdsir_tpu_torch.parallel import distributed
 from ramdsir_tpu_torch.parallel.mesh import pad_batch, rank_rows, replicate_state
 from ramdsir_tpu_torch.train.state import init_state
@@ -73,7 +73,7 @@ def step_case(
     step = make_train_step(cfg, total_iters, batch_size_list=list(bsl), debug_grads=True)
     b_real = sum(bsl)
     out: dict = {"metrics": [], "digests": []}
-    launches = ram_mix.launches
+    launches = k1_launches()
     for i, (batch, ratio) in enumerate(zip(batches, ratios)):
         local = {k: v.to(device) for k, v in local_rows(batch, b_real).items()}
         m = step(state, local, draws={"ratio": torch.from_numpy(np.asarray(ratio, np.float32)).to(device)},
@@ -87,8 +87,13 @@ def step_case(
             out["grads"] = {n: {k: g.cpu().numpy() for k, g in gs.items()} for n, gs in grads.items()}
             out["state0"] = snapshot(state)
     out["state"] = snapshot(state)
-    out["k1_launches"] = ram_mix.launches - launches
+    out["k1_launches"] = k1_launches() - launches
     return out
+
+
+def k1_launches() -> int:
+    """K1's runs on the card so far, over its paths."""
+    return sum(k for name, k in cuda_build.launch_counts().items() if name.startswith("ram_mix."))
 
 
 def snapshot(state) -> Dict[str, Dict[str, np.ndarray]]:

@@ -2,6 +2,8 @@
 variant flag of the train CLI (--num_devices 2 as two gloo ranks), its
 import hygiene, and its refusal of more CUDA ranks than visible GPUs."""
 import ast
+import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -356,7 +358,7 @@ print(bad)
     assert proc.returncode == 0, proc.stderr[-3000:]
     names, bad = (ast.literal_eval(line) for line in proc.stdout.strip().splitlines()[-2:])
     assert len(names) >= 30, names
-    for new in ("native", "ops.metrics", "ops.postprocess", "ops.resize", "data.loaders", "train.evaluate",
+    for new in ("native", "native.build", "ops.metrics", "ops.postprocess", "ops.resize", "data.loaders", "train.evaluate",
                 "train.checkpoint", "utils.viz", "cli.test_fundus_slice", "data.nifti", "data.prostate",
                 "cli.test_prostate_volume", "utils.msgpack", "data.png", "ops.image", "ops.upsample",
                 "ops.cuda_build", "utils.profiler", "models.norm", "data.transforms", "utils.logging",
@@ -404,8 +406,8 @@ def test_failing_compiler_raises(monkeypatch):
     from ramdsir_tpu_torch import native
     from ramdsir_tpu_torch.ops import metrics, postprocess
 
-    monkeypatch.setattr(native, "CXX_FLAGS", native.CXX_FLAGS + ("-fno-such-flag-here",))
-    monkeypatch.setattr(native, "_lib", None)
+    bad_flags = lambda lib: dataclasses.replace(lib, flags=lib.flags + ("-fno-such-flag-here",))
+    monkeypatch.setattr(native, "POSTPROC", bad_flags(native.POSTPROC))
     m = np.zeros((8, 8), bool)
     m[2:5, 2:5] = True
     with pytest.raises(RuntimeError, match="failed on"):
@@ -416,12 +418,33 @@ def test_failing_compiler_raises(monkeypatch):
         metrics.hd95(m, m)
     from ramdsir_tpu_torch.data import png
 
-    monkeypatch.setattr(native, "_png_lib", None)
+    monkeypatch.setattr(native, "PNG", bad_flags(native.PNG))
     with pytest.raises(RuntimeError, match="failed on"):
         png.decode(png.encode(np.zeros((2, 3), np.uint8)))
-    monkeypatch.setattr(native, "CXX", "no-such-compiler-here")
+    monkeypatch.setattr(native, "POSTPROC", dataclasses.replace(native.POSTPROC, compiler="no-such-compiler-here"))
     with pytest.raises(RuntimeError, match="cannot run"):
         postprocess.connectivity_region_analysis(m)
+
+
+def test_builder_keys_on_flags_and_reuses_its_build(monkeypatch, tmp_path):
+    """The builder names a library by the hash of its source, compiler and
+    flags: a changed flag builds a new file, and a second build of the same
+    source and flags finds the file and runs no compiler."""
+    from ramdsir_tpu_torch.native import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    src = tmp_path / "tiny.cpp"
+    src.write_text('extern "C" int tiny_answer() { return 42; }\n')
+    flags = ("-O1", "-shared", "-fPIC")
+    lib = build.Library(str(src), "g++", flags, {"tiny_answer": (ctypes.c_int, [])})
+    path = lib.path()
+    assert os.path.dirname(path) == str(tmp_path) and lib.load().tiny_answer() == 42
+    other = build.build_library(str(src), "g++", flags + ("-DTINY",))
+    assert other != path and os.path.exists(other)
+    runs = []
+    monkeypatch.setattr(build.subprocess, "run", lambda *a, **k: runs.append(a))
+    assert build.build_library(str(src), "g++", flags) == path and runs == []
+    assert sorted(os.listdir(tmp_path)) == sorted(["tiny.cpp", os.path.basename(path), os.path.basename(other)])
 
 
 @pytest.mark.parametrize("flags", [["--num_devices", "2"]], ids=lambda f: f[0].lstrip("-"))

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from ramdsir_tpu_torch.ops import cuda_build
 from ramdsir_tpu_torch.ops import ram as tram
 from ramdsir_tpu_torch.ops import ram_mix
 from tests._torch_threads import torch_threads  # noqa: F401 (module-scoped autouse)
@@ -32,6 +33,17 @@ def gen():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K1, K2 and K3 are CUDA kernels with no CPU build")
     return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _launched(before):
+    """The kernels that ran on the card since `before` (a
+    `cuda_build.launch_counts()`), with their runs; reading waits for the card."""
+    return {k: n - before[k] for k, n in cuda_build.launch_counts().items() if n != before[k]}
+
+
+def _k1(counts):
+    """K1's runs in launch counts (`_launched`'s or `launch_counts()`'s), over its paths."""
+    return sum(n for k, n in counts.items() if k.startswith("ram_mix."))
 
 
 def _inputs(gen, n, h, w, c=3):
@@ -89,12 +101,10 @@ def test_kernel_matches_plain(gen, h, w, mode, variant):
     path = {"full": "full_vec", "band": "strided", "delta": "delta_flat"}[mode]
     if variant == "misaligned" and mode != "delta":
         path = "strided"
-    before, before_path = ram_mix.launches, ram_mix.launches_by_path[path]
+    before = cuda_build.launch_counts()
     got = _mix(ram_mix.mix_spectrum, *args)
     want = _mix(ram_mix.mix_spectrum_plain, *args)
-    torch.cuda.synchronize()
-    assert ram_mix.launches == before + 1
-    assert ram_mix.launches_by_path[path] == before_path + 1
+    assert _launched(before) == {f"ram_mix.{path}": 1}
     # the same IEEE operations in the same order: equal to a rounding of the largest value
     assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
     if variant == "tiny":
@@ -104,8 +114,7 @@ def test_kernel_matches_plain(gen, h, w, mode, variant):
 @pytest.mark.parametrize("mode", ["full", "band", "delta"])
 def test_kernel_counts_its_runs_on_the_card_through_graph_replays(gen, mode):
     """K1's counter on the card moves by one at each eager launch and at
-    each replay of a graph that holds one launch; its wrapper's count moves
-    at the eager launch and at the capture only."""
+    each replay of a graph that holds one launch, in its path's slot."""
     z, donor, ratio = _inputs(gen, 2, 64, 64)
     amp = (tram.amplitude_spectrum(donor) if mode == "full" else tram.banded_amplitude_spectrum(donor)).permute(0, 3, 1, 2)
     b = tram.band_halfwidth(64, 64)
@@ -115,8 +124,7 @@ def test_kernel_counts_its_runs_on_the_card_through_graph_replays(gen, mode):
     run = lambda: _mix(ram_mix.mix_spectrum, z, amp, ratio, b, mode == "full", mode == "delta")
     run()  # the library, the counter and the kernel's first launch, before the capture
     torch.cuda.synchronize()
-    ram_mix.zero_device_launches()
-    host = ram_mix.launches_by_path[path]
+    cuda_build.zero_launch_counts()
     run()
     graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -126,21 +134,19 @@ def test_kernel_counts_its_runs_on_the_card_through_graph_replays(gen, mode):
     for _ in range(3):
         graph.replay()
     torch.cuda.synchronize()
-    assert ram_mix.device_launches() == {p: 4 if p == path else 0 for p in ram_mix.PATHS}
-    assert ram_mix.launches_by_path[path] == host + 2
+    assert cuda_build.launch_counts() == {k: 4 if k == f"ram_mix.{path}" else 0 for k in cuda_build.COUNTERS}
 
 
 def test_ram_functions_run_through_the_kernel(gen):
     z, donor, ratio = _inputs(gen, 2, 64, 64)
     src = torch.fft.irfft2(z, s=(64, 64)).permute(0, 2, 3, 1)
-    before = ram_mix.launches
+    before = cuda_build.launch_counts()
     outs = [
         tram.ram_mixup(src, tram.amplitude_spectrum(donor), ratio),
         tram.ram_mixup_banded(src, tram.banded_amplitude_spectrum(donor), ratio),
         tram.ram_mixup_banded_dft(src, tram.banded_amplitude_spectrum(donor), ratio),
     ]
-    torch.cuda.synchronize()
-    assert ram_mix.launches == before + 3
+    assert _k1(_launched(before)) == 3
     for out in outs[1:]:
         assert float((out - outs[0]).abs().max()) < 1e-2  # O(255) images, float32 FFT vs DFT rounding
 
@@ -212,21 +218,15 @@ def test_predict_on_card_matches_cpu(eval_models, bn_adapt):
 def test_predict_on_card_keeps_atens_channels_last_upsample(eval_models, bn_adapt):
     """The predict path's forward (NHWC images permuted: channels-last
     activations) takes aten's NHWC upsample, not K3 or K2, with and without
-    BN adaptation: neither kernel runs on the card, neither wrapper is
-    called."""
-    from ramdsir_tpu_torch.ops import upsample
+    BN adaptation: neither kernel runs on the card."""
     from ramdsir_tpu_torch.train.steps import make_predict_fn
 
     cfg, models = eval_models
     img = np.random.default_rng(1).integers(0, 256, (4, EVAL_S, EVAL_S, 3)).astype(np.uint8)
     predict = make_predict_fn(cfg, models["cuda"], bn_adapt=bn_adapt)
-    torch.cuda.synchronize()
-    upsample.zero_device_launches()
-    host = (upsample.launches, upsample.forward_launches)
+    before = cuda_build.launch_counts()
     predict(img)
-    torch.cuda.synchronize()
-    assert upsample.device_launches() == {"backward": 0, "forward": 0}
-    assert (upsample.launches, upsample.forward_launches) == host
+    assert not any(k.startswith("upsample2x.") for k in _launched(before))
 
 
 @pytest.mark.parametrize("bn_adapt", [False, True])
@@ -296,10 +296,9 @@ def _card_step(compute_dtype):
     )
     state = init_state(cfg, torch.Generator().manual_seed(0), "cuda")
     step = make_train_step(cfg, total_iters=10, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data)
-    before = dict(ram_mix.launches_by_path)
+    before = cuda_build.launch_counts()
     metrics = step(state, next(iter(pipe)), torch.Generator().manual_seed(1))
-    torch.cuda.synchronize()
-    launched = {p: k - before.get(p, 0) for p, k in ram_mix.launches_by_path.items() if k != before.get(p, 0)}
+    launched = {k.split(".", 1)[1]: n for k, n in _launched(before).items() if k.startswith("ram_mix.")}
     return cfg, state, metrics, launched
 
 
@@ -381,12 +380,10 @@ def test_graph_windows_match_single_steps_on_card(gen):
     the same seed, under deterministic_mode: parameters, BN statistics,
     Adam moments and every step's metrics bit-equal; K1 run 6 times (once
     a step) and K2 and K3 8 times a step both ways, as the kernels count
-    themselves on the card; their wrappers count the graph's 2 eager steps
-    and its capture only; 4 replays."""
+    themselves on the card; 4 replays."""
     from ramdsir_tpu_torch.config import TrainConfig
     from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
     from ramdsir_tpu_torch.data.synthetic import fundus_arrays
-    from ramdsir_tpu_torch.ops import upsample
     from ramdsir_tpu_torch.train.loop import deterministic_mode
     from ramdsir_tpu_torch.train.state import init_state
     from ramdsir_tpu_torch.train.steps import make_train_step
@@ -404,9 +401,7 @@ def test_graph_windows_match_single_steps_on_card(gen):
         state = init_state(cfg, torch.Generator().manual_seed(0), "cuda")
         g = torch.Generator().manual_seed(1)
         torch.cuda.synchronize()
-        ram_mix.zero_device_launches()
-        upsample.zero_device_launches()
-        host = (ram_mix.launches, upsample.launches, upsample.forward_launches)
+        cuda_build.zero_launch_counts()
         with deterministic_mode(True):
             if name == "single":
                 step = make_train_step(cfg, 20, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data)
@@ -420,14 +415,11 @@ def test_graph_windows_match_single_steps_on_card(gen):
                 metrics = {k: torch.cat([t[k] for t in tables]) for k in tables[0]}
                 assert window.graphed()
                 replays = window.replays
-        torch.cuda.synchronize()
-        up = upsample.device_launches()
-        launched = (sum(ram_mix.device_launches().values()), up["backward"], up["forward"])
-        host = tuple(n - c for n, c in zip((ram_mix.launches, upsample.launches, upsample.forward_launches), host))
-        runs[name] = (state, metrics, launched, host, replays)
-    (a, ma, la, ha, _), (b, mb, lb, hb, replays) = runs["single"], runs["graph"]
+        counts = cuda_build.launch_counts()
+        launched = (_k1(counts), counts["upsample2x.backward"], counts["upsample2x.forward"])
+        runs[name] = (state, metrics, launched, replays)
+    (a, ma, la, _), (b, mb, lb, replays) = runs["single"], runs["graph"]
     assert la == lb == (6, 48, 48) and replays == 4 and a.step == b.step == 6
-    assert ha == (6, 48, 48) and hb == (3, 24, 24)
     assert ma.keys() == mb.keys() and all(torch.equal(ma[k], mb[k]) for k in ma)
     for name, m in a.models.items():
         for k, v in m.state_dict().items():
@@ -442,12 +434,10 @@ def test_graph_windows_match_single_steps_on_card(gen):
 def test_default_graph_window_runs_k3_and_k2_eight_times_a_step(gen):
     """Two windows of 3 fundus steps at 64^2 without deterministic_mode (2
     eager steps, the capture and 4 replays): K3 and K2 run 8 times a step
-    each, 48 in all, as the kernels count themselves on the card; their
-    wrappers count the 2 eager steps and the capture only."""
+    each, 48 in all, as the kernels count themselves on the card."""
     from ramdsir_tpu_torch.config import TrainConfig
     from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
     from ramdsir_tpu_torch.data.synthetic import fundus_arrays
-    from ramdsir_tpu_torch.ops import upsample
     from ramdsir_tpu_torch.train.state import init_state
     from ramdsir_tpu_torch.train.steps import make_train_step
 
@@ -463,14 +453,12 @@ def test_default_graph_window_runs_k3_and_k2_eight_times_a_step(gen):
     window = make_train_step(cfg, 20, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data,
                              scan=True, window=3)
     torch.cuda.synchronize()
-    upsample.zero_device_launches()
-    host = (upsample.launches, upsample.forward_launches)
+    cuda_build.zero_launch_counts()
     g = torch.Generator().manual_seed(1)
     tables = [window(state, {k: v[i:i + 3] for k, v in plan.items()}, g)[0] for i in (0, 3)]
-    torch.cuda.synchronize()
+    counts = cuda_build.launch_counts()
     assert not torch.are_deterministic_algorithms_enabled() and window.graphed() and window.replays == 4
-    assert upsample.device_launches() == {"backward": 48, "forward": 48}
-    assert (upsample.launches - host[0], upsample.forward_launches - host[1]) == (24, 24)
+    assert (counts["upsample2x.backward"], counts["upsample2x.forward"]) == (48, 48)
     assert all(bool(torch.isfinite(t["loss"]).all()) for t in tables)
 
 
@@ -540,11 +528,10 @@ def test_k2_matches_plain(gen, shape, dtype):
 
     n, c, h, w = shape
     g = torch.randn((n, c, 2 * h, 2 * w), generator=gen, device="cuda").to(dtype)
-    before = upsample.launches
+    before = cuda_build.launch_counts()
     got = upsample.upsample2x_backward(g)
     want = upsample.upsample2x_backward_plain(g)
-    torch.cuda.synchronize()
-    assert upsample.launches == before + 1
+    assert _launched(before) == {"upsample2x.backward": 1}
     assert got.dtype == dtype and got.shape == (n, c, h, w)
     assert torch.equal(got, want)
 
@@ -569,11 +556,10 @@ def test_k3_matches_plain(gen, shape, dtype):
     from ramdsir_tpu_torch.ops import upsample
 
     x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-    before = (upsample.launches, upsample.forward_launches)
+    before = cuda_build.launch_counts()
     got = upsample.upsample2x_forward(x)
     want = upsample.upsample2x_forward_plain(x)
-    torch.cuda.synchronize()
-    assert (upsample.launches, upsample.forward_launches) == (before[0], before[1] + 1)
+    assert _launched(before) == {"upsample2x.forward": 1}
     n, c, h, w = shape
     assert got.dtype == dtype and got.shape == (n, c, 2 * h, 2 * w)
     assert torch.equal(got, want)
@@ -607,11 +593,10 @@ def test_upsample_function_takes_channels_last_through_k3(gen):
 
     x = torch.randn((2, 16, 12, 16), generator=gen, device="cuda").contiguous(memory_format=torch.channels_last)
     x.requires_grad_(True)
-    before = (upsample.launches, upsample.forward_launches)
+    before = cuda_build.launch_counts()
     y = upsample.Upsample2x.apply(x)
     (dx,) = torch.autograd.grad(y, x, torch.ones_like(y))
-    torch.cuda.synchronize()
-    assert (upsample.launches, upsample.forward_launches) == (before[0] + 1, before[1] + 1)
+    assert _launched(before) == {"upsample2x.forward": 1, "upsample2x.backward": 1}
     assert torch.equal(y, upsample.upsample2x_forward_plain(x.detach()))
     assert torch.equal(dx, upsample.upsample2x_backward_plain(torch.ones_like(y)))
 
@@ -634,7 +619,6 @@ def _fundus_steps(cfg, steps=2, deterministic=True):
     and K3's launches."""
     from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
     from ramdsir_tpu_torch.data.synthetic import fundus_arrays
-    from ramdsir_tpu_torch.ops import upsample
     from ramdsir_tpu_torch.train.loop import deterministic_mode
     from ramdsir_tpu_torch.train.state import init_state
     from ramdsir_tpu_torch.train.steps import make_train_step
@@ -646,12 +630,12 @@ def _fundus_steps(cfg, steps=2, deterministic=True):
     state = init_state(cfg, torch.Generator().manual_seed(0), "cuda")
     step = make_train_step(cfg, total_iters=10, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data)
     gen, rows, metrics = torch.Generator().manual_seed(1), iter(pipe), []
-    before = (upsample.launches, upsample.forward_launches)
+    before = cuda_build.launch_counts()
     with deterministic_mode(deterministic):
         for _ in range(steps):
             metrics.append({k: v.clone() for k, v in step(state, next(rows), gen).items()})
-    torch.cuda.synchronize()
-    return state, metrics, (upsample.launches - before[0], upsample.forward_launches - before[1])
+    launched = _launched(before)
+    return state, metrics, (launched.get("upsample2x.backward", 0), launched.get("upsample2x.forward", 0))
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
@@ -854,10 +838,10 @@ def test_fit_on_host_loaders_on_card(gen, tmp_path, loader):
     cfg = TrainConfig(data_root=str(tmp_path / "data"), dataset="fundus", domain_idxs=(1, 2, 3), test_domain_idx=0,
                       image_size=64, is_out_domain=True, epochs=1, save_path=str(tmp_path / "run"), device="cuda",
                       device_data=False, loader=loader, num_workers=2, test_batch_size=2)
-    ram_mix.launches = 0
-    ram_mix.launches_by_path.update(dict.fromkeys(ram_mix.launches_by_path, 0))
+    before = cuda_build.launch_counts()
     summary = fit(cfg, max_steps=2)
-    assert summary["steps"] == 2 and ram_mix.launches == 2 and ram_mix.launches_by_path["full_vec"] == 2
+    launched = _launched(before)
+    assert summary["steps"] == 2 and _k1(launched) == 2 and launched["ram_mix.full_vec"] == 2
     rows = [json.loads(line) for line in open(os.path.join(cfg.save_path, "log", "metrics.jsonl"))]
     losses = [v for r in rows for k, v in r.items() if k.startswith("loss/")]
     assert len(losses) == 14 and all(math.isfinite(v) for v in losses)
@@ -991,9 +975,8 @@ def test_batch_norm_graph_replays_match_eager_and_count(gen):
     """The module's forward and backward captured in a CUDA graph: each
     replay bit-equal to the eager call, running statistics included; the
     kernels' device counter moves by one a kernel at the eager call and at
-    each of 3 replays, the host counts at the eager call and the capture."""
+    each of 3 replays."""
     from ramdsir_tpu_torch.models.norm import BatchNorm
-    from ramdsir_tpu_torch.ops import batch_norm as bn
 
     m = BatchNorm(16).cuda().train()
     x = torch.randn((8, 16, 32, 32), generator=gen, device="cuda", requires_grad=True)
@@ -1013,8 +996,7 @@ def test_batch_norm_graph_replays_match_eager_and_count(gen):
         torch.cuda.synchronize()
         for t, s in zip((m.running_mean, m.running_var), start):
             t.copy_(s)
-        bn.zero_device_launches()
-        host = (bn.launches, bn.backward_launches)
+        cuda_build.zero_launch_counts()
         eager = [t.clone() for t in run()] + [m.running_mean.clone(), m.running_var.clone()]
         with torch.cuda.graph(graph, stream=side):
             outs = run()
@@ -1025,8 +1007,8 @@ def test_batch_norm_graph_replays_match_eager_and_count(gen):
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(eager, [*outs, m.running_mean, m.running_var]))
-    assert bn.device_launches() == dict.fromkeys(bn.ENTRIES, 4)
-    assert (bn.launches, bn.backward_launches) == (host[0] + 2, host[1] + 2)
+    assert {k: n for k, n in cuda_build.launch_counts().items() if k.startswith("batch_norm.")} == dict.fromkeys(
+        ("batch_norm.stats", "batch_norm.forward", "batch_norm.backward_reduce", "batch_norm.backward"), 4)
 
 
 def test_batch_norm_wrapper_refuses_what_the_kernels_cannot_take(gen):
@@ -1056,7 +1038,6 @@ def test_train_step_runs_every_norm_through_the_kernels(gen):
     from ramdsir_tpu_torch.config import TrainConfig
     from ramdsir_tpu_torch.data.device_pipeline import DeviceFundusPipeline
     from ramdsir_tpu_torch.data.synthetic import fundus_arrays
-    from ramdsir_tpu_torch.ops import batch_norm as bn
     from ramdsir_tpu_torch.train.state import init_state
     from ramdsir_tpu_torch.train.steps import make_train_step
 
@@ -1072,15 +1053,14 @@ def test_train_step_runs_every_norm_through_the_kernels(gen):
     window = make_train_step(cfg, 20, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data,
                              scan=True, window=3)
     torch.cuda.synchronize()
-    bn.zero_device_launches()
-    host = bn.launches
+    cuda_build.zero_launch_counts()
     g = torch.Generator().manual_seed(1)
     for i in (0, 3):
         window(state, {k: v[i:i + 3] for k, v in plan.items()}, g)
-    torch.cuda.synchronize()
+    counts = cuda_build.launch_counts()
     assert window.graphed() and window.replays == 4
-    assert bn.device_launches() == dict.fromkeys(bn.ENTRIES, 6 * 38)
-    assert bn.launches - host == 3 * 38  # 2 eager steps and the capture
+    assert {k: n for k, n in counts.items() if k.startswith("batch_norm.")} == dict.fromkeys(
+        ("batch_norm.stats", "batch_norm.forward", "batch_norm.backward_reduce", "batch_norm.backward"), 6 * 38)
 
 
 def test_transunet_attention_runs_the_memory_efficient_kernel(gen):
@@ -1137,7 +1117,7 @@ def test_transunet_graph_window_matches_eager_steps(gen, monkeypatch):
         state = init_state(cfg, torch.Generator().manual_seed(0), "cuda")
         g = torch.Generator().manual_seed(1)
         torch.cuda.synchronize()
-        ram_mix.zero_device_launches()
+        cuda_build.zero_launch_counts()
         if name == "single":
             step = make_train_step(cfg, 20, batch_size_list=cfg.batch_size_list, device_data=pipe.device_data)
             losses[name] = torch.stack([step(state, {k: v[i] for k, v in plan.items()}, g)["loss"] for i in range(6)])
@@ -1147,8 +1127,7 @@ def test_transunet_graph_window_matches_eager_steps(gen, monkeypatch):
             losses[name] = torch.cat([window(state, {k: v[i:i + 3] for k, v in plan.items()}, g)[0]["loss"]
                                       for i in (0, 3)])
             assert window.graphed() and window.replays == 4
-        torch.cuda.synchronize()
-        assert sum(ram_mix.device_launches().values()) == 6 and state.step == 6
+        assert _k1(cuda_build.launch_counts()) == 6 and state.step == 6
         enc = state.models["encoder"]
         assert counters(enc) == {"vit_tokens": 2 * sum(cfg.batch_size_list) * enc.grid ** 2, "attn_backend": "efficient"}
     a, b = losses["single"].double().cpu(), losses["graph"].double().cpu()

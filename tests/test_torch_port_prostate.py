@@ -35,7 +35,7 @@ from ramdsir_tpu_torch.config import TrainConfig
 from ramdsir_tpu_torch.data import nifti, synthetic
 from ramdsir_tpu_torch.data.device_pipeline import DeviceProstatePipeline, gather_prostate
 from ramdsir_tpu_torch.data.prostate import ProstateDataset, ProstateMultiDataset
-from ramdsir_tpu_torch.ops import ram_mix
+from ramdsir_tpu_torch.ops import cuda_build
 from ramdsir_tpu_torch.train import evaluate
 from ramdsir_tpu_torch.train.state import build_models
 from ramdsir_tpu_torch.train.steps import make_predict_fn, make_train_step
@@ -259,7 +259,7 @@ def test_prostate_step_metrics(step_run):
     # the host batch and the device pipeline's row give the same step
     for k in METRICS:
         assert float(tm_host[k]) == float(tm[k]), k
-    assert ram_mix.launches == 0  # the plain version served the CPU tensors
+    assert not any(cuda_build.launch_counts().values())  # the plain version served the CPU tensors
 
 
 def test_prostate_step_gradients(step_run):

@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from ramdsir_tpu.models.unet import upsample2x as jupsample2x
-from ramdsir_tpu_torch.ops import upsample
+from ramdsir_tpu_torch.ops import cuda_build, upsample
 from ramdsir_tpu_torch.ops.upsample import (
     Upsample2x,
     upsample2x_backward,
@@ -86,13 +86,13 @@ def test_function_on_cpu_keeps_aten_forward_and_launches_nothing():
     so on the CPU the mode moves only the backward's summation order) and
     K2's plain backward, float64 gradcheck; no kernel launch counted.  The
     plain forward, which K3 is held to on the card, is the wrapper's."""
-    before = (upsample.launches, upsample.forward_launches)
+    before = cuda_build.launch_counts()
     x = _x((2, 3, 4, 5), seed=1).requires_grad_(True)
     assert torch.equal(Upsample2x.apply(x), _aten(x.detach()))
     assert torch.autograd.gradcheck(Upsample2x.apply, (x,))
     x1 = _x((1, 2, 1, 2), seed=2).requires_grad_(True)
     assert torch.autograd.gradcheck(Upsample2x.apply, (x1,))
-    assert (upsample.launches, upsample.forward_launches) == before
+    assert cuda_build.launch_counts() == before
     with pytest.raises(ValueError, match="upsample2x_forward: no kernel for device meta"):
         Upsample2x.apply(torch.zeros(1, 2, 4, 4, device="meta"))
 
@@ -102,7 +102,7 @@ def test_function_on_cpu_keeps_aten_forward_and_launches_nothing():
 def test_default_upsample_on_cpu_is_aten_both_ways(dtype, layout):
     """Without deterministic mode, `models.unet.upsample2x` on a CPU tensor
     is `F.interpolate` forward and backward, bit for bit, and launches
-    neither kernel (the host counters stay); a channels-last input gives a
+    neither kernel (the launch counts stay); a channels-last input gives a
     channels-last output, as aten's own does."""
     from ramdsir_tpu_torch.models.unet import upsample2x
 
@@ -111,7 +111,7 @@ def test_default_upsample_on_cpu_is_aten_both_ways(dtype, layout):
     x = _x((2, 8, 6, 10), torch.float32, seed=3).to(dtype).contiguous(memory_format=fmt)
     g = _x((2, 8, 12, 20), torch.float32, seed=4).to(dtype)
     assert not upsample.kernels_take(x)
-    before = (upsample.launches, upsample.forward_launches)
+    before = cuda_build.launch_counts()
     out = {}
     for name, fn in (("port", upsample2x), ("aten", _aten)):
         xi = x.clone().requires_grad_(True)
@@ -119,7 +119,7 @@ def test_default_upsample_on_cpu_is_aten_both_ways(dtype, layout):
         out[name] = (y, *torch.autograd.grad(y, xi, g))
     (y, dx), (want_y, want_dx) = out["port"], out["aten"]
     assert y.dtype == dtype and torch.equal(y, want_y) and torch.equal(dx, want_dx)
-    assert (upsample.launches, upsample.forward_launches) == before
+    assert cuda_build.launch_counts() == before
     assert y.is_contiguous(memory_format=fmt) and y.is_contiguous() == (layout == "nchw")
 
 

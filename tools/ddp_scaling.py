@@ -47,7 +47,7 @@ def main(argv=None) -> int:
     import chip_smoke as smoke
     from ramdsir_tpu_torch.config import TrainConfig
     from ramdsir_tpu_torch.data.synthetic import fundus_arrays, fundus_test_samples
-    from ramdsir_tpu_torch.ops import ram_mix
+    from ramdsir_tpu_torch.ops import batch_norm, ram_mix, upsample
     from ramdsir_tpu_torch.train.loop import fit
 
     on_card = a.device == "cuda"
@@ -61,7 +61,8 @@ def main(argv=None) -> int:
     shutil.rmtree(smoke.OUT, ignore_errors=True)
     os.makedirs(smoke.OUT)
     if on_card:
-        ram_mix._library()  # built once here, loaded by every rank
+        for lib in (ram_mix.LIBRARY, upsample.LIBRARY, batch_norm.LIBRARY):
+            lib.path()  # built once here, loaded by every rank
     arrays = fundus_arrays(per_domain_train=64, size=a.image_size, seed=0)
     testset = fundus_test_samples(num=8, size=2 * a.image_size, image_size=a.image_size, seed=1)
     card = smoke.nvidia_smi_line() if on_card else "not measured"

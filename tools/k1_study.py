@@ -25,7 +25,6 @@ chiprun_out/k1_study/study.jsonl.
 import ctypes
 import json
 import os
-import subprocess
 import sys
 import tempfile
 
@@ -88,16 +87,17 @@ CEILINGS = {  # variant code, kernel-name key
 SWEEP = (1, 2, 4, 8, 16)
 
 
-def build_ceiling(nvcc, tmp):
-    src, lib = os.path.join(tmp, "ceiling.cu"), os.path.join(tmp, "libceiling.so")
+def build_ceiling(tmp):
+    """The ceiling kernels' launch function, built from READ_SRC as the port's kernels are."""
+    from ramdsir_tpu_torch.native.build import Library
+    from ramdsir_tpu_torch.ops import cuda_build
+
+    src = os.path.join(tmp, "ceiling.cu")
     with open(src, "w") as f:
         f.write(READ_SRC)
-    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-                    "-Xcompiler", "-fPIC", "-o", lib, src], check=True, capture_output=True, text=True)
-    fn = ctypes.CDLL(lib).ceiling_launch
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    args = [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib = Library(src, cuda_build.nvcc(), cuda_build.NVCC_FLAGS, {"ceiling_launch": (ctypes.c_int, args)})
+    return lib.load().ceiling_launch
 
 
 def main():
@@ -155,12 +155,11 @@ def main():
                                                    full=case["full"], delta=case["delta"])
             emit(kind="path", mode=case["mode"], path=path, picked=path == own, **timings(fn, "mix_"))
 
-    nvcc = ram_mix._nvcc()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     sink = torch.empty(4, device="cuda")
     stream = lambda: torch.cuda.current_stream().cuda_stream
     with tempfile.TemporaryDirectory() as tmp:
-        launch = build_ceiling(nvcc, tmp)
+        launch = build_ceiling(tmp)
 
     def read(variant, data):
         n = data.numel() // 4

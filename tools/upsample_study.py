@@ -30,7 +30,7 @@ K3 sums timed through them, beside the source as it is (`as_is`), in turns
 chiprun_out/upsample_study/study.jsonl.
 """
 import argparse
-import ctypes
+import dataclasses
 import importlib.util
 import json
 import os
@@ -39,6 +39,7 @@ import subprocess
 import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(REPO, "chiprun_out", "upsample_study")
@@ -85,30 +86,22 @@ def variant_source(src, edits, path):
 
 def sweep(torch, smoke, upsample, emit):
     """Each variant's step sums of K2 and K3 (back to back), in turns."""
-    from ramdsir_tpu_torch.ops import cuda_build
-
     vdir = os.path.join(OUT, "variants")
     os.makedirs(vdir, exist_ok=True)
     names = ["as_is", *VARIANTS, "as_is"]
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        paths = dict(zip(VARIANTS, pool.map(lambda kv: cuda_build.build_library(variant_source(
-            upsample.SOURCE, kv[1], os.path.join(vdir, f"upsample2x_{kv[0]}.cu"))), VARIANTS.items())))
-    own = upsample._library()
-    libs = {"as_is": own}
-    for name, path in paths.items():
-        lib = ctypes.CDLL(path)
-        for fn in (lib.upsample2x_backward_launch, lib.upsample2x_forward_launch):
-            fn.argtypes, fn.restype = own.upsample2x_backward_launch.argtypes, ctypes.c_int
-        libs[name] = lib
+    libs = {name: dataclasses.replace(upsample.LIBRARY, source=variant_source(
+        upsample.SOURCE, edits, os.path.join(vdir, f"upsample2x_{name}.cu"))) for name, edits in VARIANTS.items()}
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.path(), libs.values()))  # built at once, loaded at first launch
+    libs["as_is"] = upsample.LIBRARY
     gen = torch.Generator(device="cuda").manual_seed(11)
     cases = [(run, dtype, shape, torch.randn(shape, generator=gen, device="cuda").to(dtype),
               torch.randn((shape[0], shape[1], 2 * shape[2], 2 * shape[3]), generator=gen, device="cuda").to(dtype))
              for run, shapes in STEPS.items() for dtype in (torch.float32, torch.bfloat16) for shape in shapes]
     want = [(upsample.upsample2x_forward_plain(x), upsample.upsample2x_backward_plain(g)) for *_, x, g in cases]
     sums = {}
-    try:
-        for turn, name in enumerate(names):
-            upsample._lib = libs[name]
+    for turn, name in enumerate(names):
+        with mock.patch.object(upsample, "LIBRARY", libs[name]):
             for (run, dtype, shape, x, g), (y, dx) in zip(cases, want):
                 equal = torch.equal(upsample.upsample2x_forward(x), y) and torch.equal(upsample.upsample2x_backward(g), dx)
                 key = (name, run, str(dtype).split(".")[-1])
@@ -117,8 +110,6 @@ def sweep(torch, smoke, upsample, emit):
                 slot = 1 if turn == len(names) - 1 else 0
                 total["k3_kernel_ms"][slot] += smoke.back_to_back_ms(lambda: upsample.upsample2x_forward(x))
                 total["k2_kernel_ms"][slot] += smoke.back_to_back_ms(lambda: upsample.upsample2x_backward(g))
-    finally:
-        upsample._lib = own
     for (name, run, dtype), total in sums.items():
         bound = sum(1e3 * smoke.k2_bytes(shape, x.element_size()) / smoke.peak_bandwidth(torch.cuda.get_device_name(0))
                     for r, d, shape, x, _ in cases if r == run and str(d).endswith(dtype))
@@ -130,12 +121,14 @@ def sweep(torch, smoke, upsample, emit):
 
 
 def load_parent(parent):
-    """The parent checkout's ops/upsample.py, building its own csrc/upsample2x.cu."""
+    """The parent checkout's ops/upsample.py, building its own csrc/upsample2x.cu
+    (a checkout that binds its kernels through `ops.cuda_build.launch`)."""
     spec = importlib.util.spec_from_file_location(
         "parent_upsample", os.path.join(parent, "ramdsir_tpu_torch", "ops", "upsample.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod.SOURCE = os.path.join(parent, "ramdsir_tpu_torch", "csrc", "upsample2x.cu")
+    mod.LIBRARY = dataclasses.replace(mod.LIBRARY, source=mod.SOURCE)
     return mod
 
 
